@@ -1,0 +1,306 @@
+#!/usr/bin/env python3
+# -*- coding: utf-8 -*-
+"""Smoke run of tpukit_torch on one NVIDIA card (Hopper).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernel from the sources in this checkout and drives
+the port's main path, the Case B anchor sweep, through its own CLI:
+
+  0. the card: CUDA must be present; prints its name and power limit;
+  1. build: compiles kernel K1 (tpukit_torch/csrc/fs_table.cu) with nvcc,
+     and tpukit's host C++ coder with g++ when the checkout has no build
+     of it, so that neither build lands in a timed rep;
+  2. K1 against its plain torch version on the card, exact, at the plan's
+     shapes, an odd block count, J=16, a misaligned input and saturating
+     input; both timed with CUDA events;
+  3. the slice: ``run-codec --codec ccsds121 --rate-key none --reps 3
+     --preproc none --nbit 16 --interleave bip --tile 512`` (bench.py's
+     Case B command, plus --keep-bitstream to compare the stream) on
+     bench.py's canonical 180×512×512 int16 tile; checks that the sweep
+     launched K1 at least once per plan chunk, that its plan equals the
+     plain CPU plan, that its stream equals the serial C++ coder's (pinned
+     byte-exact to libaec by tests/test_ccsds121.py), and that every rep
+     is lossless;
+  4. the metric pass on a lossy recon of the same tile, on the card and on
+     the CPU (exact integers and ERR8 maps; PSNR/SSIM within rel 1e-4,
+     SAM/SID/LMSE within rel 1e-3: float32 sums in another order).
+
+Every phase raises on failure. Logs each phase's checks and timings to
+stderr; prints a kernels JSON line, the card line from nvidia-smi and,
+last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import csv
+import importlib.util
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tpukit_torch.cli.main import run_codec_main
+from tpukit_torch.codecs import ccsds121 as model
+from tpukit_torch.codecs.ccsds121_codec import flat_stream
+from tpukit_torch.device import resolve_device
+from tpukit_torch.host import ccsds121_host, manifest, native, tiff
+from tpukit_torch.kernels import build
+from tpukit_torch.kernels.fs_table import fs_table, fs_table_ref
+from tpukit_torch.sweep import runner
+
+ROOT = Path(__file__).resolve().parent
+BANDS, SIZE = 180, 512
+PLAN_CHUNK = 1 << 22
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def event_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() over iters launches (CUDA events), warm."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_kernel(dev, card):
+    """Phase 2: K1 == plain version on the card; returns (max_abs_err, ms,
+    plain_ms) at the plan's main chunk shape."""
+    g = torch.Generator(device=dev).manual_seed(2026)
+
+    def rand(nb, J, hi=65536):
+        return torch.randint(0, hi, (nb, J), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    misaligned = torch.empty(100003 * 8 + 1, dtype=torch.int32, device=dev)
+    misaligned[1:] = rand(100003, 8).reshape(-1)
+    cases = {
+        "path chunk (524288, 8)": rand(524288, 8),
+        "path remainder (131072, 8)": rand(131072, 8),
+        "odd block count (100003, 8)": rand(100003, 8),
+        "J=16 (262144, 16)": rand(262144, 16),
+        "J=5 (4099, 5)": rand(4099, 5),
+        "misaligned rows (100003, 8)": misaligned[1:].view(100003, 8),
+        "saturating 65535 (524288, 8)": torch.full((524288, 8), 65535,
+                                                   dtype=torch.int32,
+                                                   device=dev),
+    }
+    worst = 0
+    for name, x in cases.items():
+        got, want = fs_table(x), fs_table_ref(x)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 != plain at {name}: max|err| {err}")
+        log(f"[K1] {name}: equal")
+    x = cases["path chunk (524288, 8)"]
+    # in turns on one card: plain, kernel, kernel, plain
+    p1 = event_ms(lambda: fs_table_ref(x))
+    k1 = event_ms(lambda: fs_table(x))
+    k2 = event_ms(lambda: fs_table(x))
+    p2 = event_ms(lambda: fs_table_ref(x))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    log(f"[K1] (524288, 8): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
+        f"({k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on {card}")
+    return worst, ms, plain_ms
+
+
+def load_bench():
+    spec = importlib.util.spec_from_file_location("bench", ROOT / "bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_slice(work: Path, cube: np.ndarray, card: str):
+    """Phase 3: the Case B anchor sweep through the port's CLI on CUDA;
+    returns K1's launch count in the sweep."""
+    src = work / "caseB_tile.tif"
+    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
+    idx = work / "index_caseB.json"
+    manifest.write_manifest(idx, "caseB", "tile_512", [{"tile_id": "T01", "path": src}])
+
+    plans = []
+    encode_plan = model.encode_plan
+
+    def recording_plan(*a, **kw):
+        plans.append(encode_plan(*a, **kw))
+        return plans[-1]
+
+    model.encode_plan = recording_plan
+    try:
+        fs_table.launches = 0
+        t0 = time.perf_counter()
+        res = run_codec_main([
+            "--indices", str(idx), "--codec", "ccsds121",
+            "--rate-key", "none", "--reps", "3", "--outdir", str(work / "runs"),
+            "--preproc", "none", "--nbit", "16", "--interleave", "bip",
+            "--tile", "512", "--keep-bitstream", "--device", "cuda"])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = fs_table.launches
+    finally:
+        model.encode_plan = encode_plan
+
+    nchunks = -(-BANDS * SIZE * SIZE // PLAN_CHUNK)
+    if launches < nchunks:
+        raise AssertionError(f"K1 launched {launches} times, expected >= "
+                             f"{nchunks} (one per plan chunk)")
+    if len(plans) != 1 or plans[0] is None:
+        raise AssertionError(f"expected one chunked plan, got {plans}")
+
+    # the sweep's CUDA plan == the plain plan from the same stream on the CPU
+    flat_cpu = flat_stream(torch.from_numpy(cube), 0, 0, SIZE, SIZE, "none",
+                           "bip")
+    t0 = time.perf_counter()
+    plan_cpu = model.encode_plan(flat_cpu, chunk=PLAN_CHUNK)
+    log(f"[slice] plain CPU plan in {time.perf_counter() - t0:.1f} s")
+    if plans[0] != plan_cpu:
+        raise AssertionError("CUDA plan != plain CPU plan")
+
+    # the stream == the monolithic serial coder's
+    flat = np.moveaxis(cube.view(np.uint16), 0, -1).ravel()
+    serial = ccsds121_host.encode(flat, 16, 8, 2)
+    rows = list(csv.DictReader(open(work / "runs" / "metrics.csv",
+                                    newline=""), delimiter=";"))
+    if len(rows) != 3:
+        raise AssertionError(f"expected 3 rows, got {len(rows)}")
+    for rep, row in enumerate(rows, 1):
+        rep_dir = work / "runs" / "T01" / "norate" / f"rep_{rep:02d}"
+        stream = (rep_dir / "bit" / "t_x00000_y00000.aec").read_bytes()
+        if stream != serial:
+            raise AssertionError(f"rep {rep}: stream != serial coder")
+        if (row["lossless"], row["max_abs_err"]) != ("1", "0"):
+            raise AssertionError(f"rep {rep}: not lossless: {row}")
+        if int(row["bitstream_bytes"]) != len(serial):
+            raise AssertionError(f"rep {rep}: bitstream_bytes mismatch")
+    with tiff.open(work / "runs" / "T01" / "norate" / "rep_01"
+                   / "recon.tif") as ds:
+        if not np.array_equal(ds.read(), cube):
+            raise AssertionError("recon.tif != input tile")
+
+    reps = [{k: float(r[k].replace(",", ".")) for k in
+             ("t_comp_s", "t_dec_s", "t_wrap_s")} for r in rows]
+    for i, r in enumerate(reps, 1):
+        log(f"[slice] rep {i}: t_comp {r['t_comp_s']:.3f} s, t_dec "
+            f"{r['t_dec_s']:.3f} s, t_wrap {r['t_wrap_s']:.3f} s on {card}")
+    log(f"[slice] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
+        f"{launches} K1 launches, {len(serial)} B stream, hbm peak "
+        f"{rows[0].get('hbm_peak_mb')} MiB on {card}")
+    return launches
+
+
+def metric_pass(device, cube, lanes, valid):
+    """The runner's device pass (dispatch + finalize) on one device."""
+    ref = torch.from_numpy(cube).to(device)
+    vm = torch.from_numpy(valid).to(device)
+    chunks = runner._device_pass_dispatch(
+        device, ref, vm, vm, lanes, runner._metric_chunk(*cube.shape), 0.0,
+        False, True, src_valid=valid, ql_caps=(255, 40), ref_host=cube)
+    return runner._device_pass_finalize(chunks, 8191, True)
+
+
+def check_metrics(cube, dev, card):
+    """Phase 4: lossy metric pass, CUDA against the port's CPU path."""
+    rng = np.random.default_rng(7)
+    lanes = [np.clip(cube.astype(np.int32) + rng.integers(-a, a + 1, cube.shape),
+                     -8192, 8191).astype(np.int16) for a in (6, 300)]
+    valid = np.ones(cube.shape[1:], bool)
+    valid[:16] = False
+    t0 = time.perf_counter()
+    met_cuda, e8_cuda = metric_pass(dev, cube, lanes, valid)
+    cuda_s = time.perf_counter() - t0
+    met_cpu, e8_cpu = metric_pass(torch.device("cpu"), cube, lanes, valid)
+    worst = {"quality": 0.0, "spectral": 0.0}
+    for mc, mp in zip(met_cuda, met_cpu):
+        for k, want in mp.items():
+            got = mc[k]
+            if k in ("max_abs_err", "lossless") or k.startswith("maxerr_b"):
+                if got != want:
+                    raise AssertionError(f"{k}: {got} != {want}")
+                continue
+            kind, tol = (("spectral", 1e-3) if k in ("sam_deg", "sid", "lmse")
+                         else ("quality", 1e-4))
+            rel = abs(got - want) / max(abs(want), 1e-12)
+            if not (math.isfinite(got) and rel <= tol):
+                raise AssertionError(f"{k}: {got} vs {want} (rel {rel:.2e})")
+            worst[kind] = max(worst[kind], rel)
+    for a, b in zip(e8_cuda, e8_cpu):
+        if not np.array_equal(a, b):
+            raise AssertionError("ERR8 maps differ between CUDA and CPU")
+    log(f"[metrics] CUDA == CPU: max rel err PSNR/SSIM {worst['quality']:.2e}, "
+        f"SAM/SID/LMSE {worst['spectral']:.2e}; CUDA pass {cuda_s:.2f} s "
+        f"(host clock, 2 lanes) on {card}")
+
+
+def main():
+    # phase 0: the card
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
+    dev = resolve_device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # phase 1: build K1 from this checkout's sources, and the host coder
+    t0 = time.perf_counter()
+    lib = build.build_library(force=True)
+    build.load()
+    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"[build] host C++ coder ready in {time.perf_counter() - t0:.1f} s")
+
+    # phase 2: K1 against its plain version
+    k1_err, k1_ms, plain_ms = check_kernel(dev, card)
+
+    # phase 3: the slice
+    cube = load_bench().make_caseb_cube(np.random.default_rng(2026), BANDS,
+                                        SIZE)
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        launches = run_slice(Path(tmp), cube, card)
+
+    # phase 4: lossy metric pass
+    check_metrics(cube, dev, card)
+
+    jax_loaded = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax."))
+    if jax_loaded:
+        raise AssertionError(f"JAX was imported: {jax_loaded}")
+
+    kernels = {"kernels": [{
+        "name": "fs_table", "route": "cuda",
+        "source": "tpukit_torch/csrc/fs_table.cu",
+        "replaces": "tpukit/codecs/ccsds121.py:63",
+        "launches": launches, "max_abs_err": k1_err,
+        "ms": k1_ms, "plain_ms": plain_ms}]}
+    print(json.dumps(kernels))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,82 @@
+# -*- coding: utf-8 -*-
+"""tpukit_torch never imports JAX.
+
+A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
+small Case B sweep through the port's CLI on the CPU, in two conditions:
+JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
+installed but not to be used, where no ``jax`` module may end up loaded
+either. A source scan backs it up: the port reaches tpukit only through
+``tpukit_torch/host.py``. The port also refuses a CUDA device it does not
+have, instead of falling back to the CPU."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_GUARDED_RUN = r"""
+import importlib.abc, json, sys
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax."):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+if sys.argv[2] == "absent":
+    sys.meta_path.insert(0, NoJax())
+
+import numpy as np
+import chip_smoke
+from tpukit_torch.cli.main import run_codec_main
+from tpukit_torch.host import manifest, tiff
+
+out = sys.argv[1]
+rng = np.random.default_rng(7)
+cube = rng.integers(0, 2000, (12, 32, 32)).astype(np.int16) << 2
+tiff.write_geotiff(f"{out}/t.tif", cube)
+manifest.write_manifest(f"{out}/idx.json", "caseB", "tile", [{"tile_id": "T", "path": f"{out}/t.tif"}])
+res = run_codec_main(["--indices", f"{out}/idx.json", "--codec", "ccsds121",
+                      "--rate-key", "none", "--reps", "2", "--outdir", f"{out}/runs",
+                      "--preproc", "diff1", "--nbit", "16", "--interleave", "bip",
+                      "--tile", "32", "--device", "cpu"])
+print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+                  "lossless": [r["lossless"] for r in res["rows"]]}))
+"""
+
+
+@pytest.mark.parametrize("jax_state", ["absent", "installed"])
+def test_port_runs_without_loading_jax(tmp_path, jax_state):
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _GUARDED_RUN, str(tmp_path),
+                           jax_state],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"jax": [], "lossless": [1, 1]}
+
+
+def test_port_sources_do_not_import_jax():
+    jax_pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    tpukit_pat = re.compile(r"^\s*(import\s+tpukit\.|from\s+tpukit\.)", re.M)
+    files = sorted((REPO / "tpukit_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert [p.name for p in files if jax_pat.search(p.read_text())] == []
+    assert [p.name for p in files if tpukit_pat.search(p.read_text())] == ["host.py"]
+
+
+def test_cuda_device_is_never_replaced_by_the_cpu():
+    from tpukit_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs its absence")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
