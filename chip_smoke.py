@@ -4,17 +4,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and drives
-the port's main path, the Case B anchor sweep, through its own CLI:
+Builds the port's CUDA kernels from the sources in this checkout and drives
+the port's main path, bench.py's canonical pair, through its own CLI:
 
   0. the card: CUDA must be present; prints its name and power limit;
-  1. build: compiles kernel K1 (tpukit_torch/csrc/fs_table.cu) with nvcc,
-     and tpukit's host C++ coder with g++ when the checkout has no build
-     of it, so that neither build lands in a timed rep;
+  1. build: compiles kernels K1 (tpukit_torch/csrc/fs_table.cu) and K2
+     (tpukit_torch/csrc/dwt97.cu) with nvcc, one process per source, and
+     tpukit's host C++ runtime (the CCSDS-121 coder, the J2K tier-1
+     analysis and decoder) with g++ when the checkout has no build of it,
+     so that no build lands in a timed rep;
   2. K1 against its plain torch version on the card, exact, at the plan's
      shapes, an odd block count, J=16, a misaligned input and saturating
-     input; both timed with CUDA events;
-  3. the slice: ``run-codec --codec ccsds121 --rate-key none --reps 3
+     input; K2 against its plain version, bit-equal, at Case A's
+     (4, 1024, 1024) with 5 levels, (2, 256, 256) with 3, a non-square
+     (3, 96, 160) with 5 and one (1, 4096, 4096) plane with 5; all timed
+     with CUDA events;
+  3. the Case B slice: ``run-codec --codec ccsds121 --rate-key none --reps 3
      --preproc none --nbit 16 --interleave bip --tile 512`` (bench.py's
      Case B command, plus --keep-bitstream to compare the stream) on
      bench.py's canonical 180×512×512 int16 tile; checks that the sweep
@@ -24,7 +29,15 @@ the port's main path, the Case B anchor sweep, through its own CLI:
      is lossless;
   4. the metric pass on a lossy recon of the same tile, on the card and on
      the CPU (exact integers and ERR8 maps; PSNR/SSIM within rel 1e-4,
-     SAM/SID/LMSE within rel 1e-3: float32 sums in another order).
+     SAM/SID/LMSE within rel 1e-3: float32 sums in another order);
+  5. the Case A slice: ``run-codec --codec j2k --rate-key quality --rates 1
+     2 4 6 8 10 15 20 25 30 35 40 60 100 --reps 3 --keep-bitstream``
+     (bench.py's Case A command) on bench.py's two 1024²×4 uint16 12-in-16
+     tiles; checks that the sweep launched K2 for both tiles' pricing, that
+     the byte targets it priced on the card equal the plain version's on
+     the CPU exactly, that every point's streams fit its target, and that
+     rep 1's recon.tif equals the JPEG 2000 decoder's output of its kept
+     .j2c streams.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -47,15 +60,19 @@ import torch
 from tpukit_torch.cli.main import run_codec_main
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
+from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
-from tpukit_torch.host import ccsds121_host, manifest, native, tiff
+from tpukit_torch.host import (JP2Decoder, RateSpec, ccsds121_host, manifest,
+                               native, tiff)
 from tpukit_torch.kernels import build
+from tpukit_torch.kernels.dwt97 import dwt97, dwt97_ref
 from tpukit_torch.kernels.fs_table import fs_table, fs_table_ref
 from tpukit_torch.sweep import runner
 
 ROOT = Path(__file__).resolve().parent
 BANDS, SIZE = 180, 512
 PLAN_CHUNK = 1 << 22
+RATES_A = [1, 2, 4, 6, 8, 10, 15, 20, 25, 30, 35, 40, 60, 100]
 
 
 def log(*a):
@@ -123,6 +140,39 @@ def check_kernel(dev, card):
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     log(f"[K1] (524288, 8): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
         f"({k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on {card}")
+    return worst, ms, plain_ms
+
+
+def check_dwt97(dev, card):
+    """Phase 2, K2: dwt97 == plain version on the card, bit for bit;
+    returns (max_abs_err, ms, plain_ms) at Case A's pricing shape."""
+    g = torch.Generator(device=dev).manual_seed(2026)
+    cases = {"path (4, 1024, 1024) L5": ((4, 1024, 1024), 5),
+             "(2, 256, 256) L3": ((2, 256, 256), 3),
+             "non-square (3, 96, 160) L5": ((3, 96, 160), 5),
+             "large plane (1, 4096, 4096) L5": ((1, 4096, 4096), 5)}
+    worst = 0.0
+    for name, (shape, levels) in cases.items():
+        # 12-in-16 samples, as the Case A tiles hold
+        x = (torch.randint(0, 4096, shape, generator=g, device=dev,
+                           dtype=torch.int32) << 4).to(torch.float32)
+        got, want = dwt97(x, levels), dwt97_ref(x, levels)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 != plain at {name}: max|err| {err}")
+        log(f"[K2] {name}: equal")
+    x = (torch.randint(0, 4096, (4, 1024, 1024), generator=g, device=dev,
+                       dtype=torch.int32) << 4).to(torch.float32)
+    p1 = event_ms(lambda: dwt97_ref(x, 5), 20)
+    k1 = event_ms(lambda: dwt97(x, 5), 20)
+    k2 = event_ms(lambda: dwt97(x, 5), 20)
+    p2 = event_ms(lambda: dwt97_ref(x, 5), 20)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    log(f"[K2] (4, 1024, 1024) L5: kernel {ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms ({k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on "
+        f"{card}")
     return worst, ms, plain_ms
 
 
@@ -254,6 +304,130 @@ def check_metrics(cube, dev, card):
         f"(host clock, 2 lanes) on {card}")
 
 
+def run_casea(work: Path, tiles, card: str):
+    """Phase 5: the Case A quality ladder through the port's CLI on CUDA;
+    returns K2's launch count in the sweep."""
+    items = []
+    for tid, t in tiles.items():
+        p = work / f"caseA_tile_{tid}_12in16.tif"
+        tiff.write_geotiff(p, t, blockxsize=512, blockysize=512)
+        items.append({"tile_id": tid, "path": p})
+    idx = work / "index_caseA.json"
+    manifest.write_manifest(idx, "caseA", "tile_1024", items)
+
+    priced = []
+    price = J2KCodec._price_targets
+
+    def recording(self, cube, qual_specs, device_cube=None):
+        wait = price(self, cube, qual_specs, device_cube)
+
+        def recorded_wait():
+            targets = wait()
+            priced.append((cube, dict(qual_specs), device_cube.device,
+                           targets))
+            return targets
+        return recorded_wait
+
+    J2KCodec._price_targets = recording
+    try:
+        dwt97.launches = 0
+        t0 = time.perf_counter()
+        res = run_codec_main([
+            "--indices", str(idx), "--codec", "j2k",
+            "--rate-key", "quality", "--rates", *map(str, RATES_A),
+            "--reps", "3", "--outdir", str(work / "runsA"),
+            "--keep-bitstream", "--device", "cuda"])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dwt97.launches
+    finally:
+        J2KCodec._price_targets = price
+
+    if launches < 10 * len(tiles):
+        raise AssertionError(f"K2 launched {launches} times, expected >= "
+                             f"{10 * len(tiles)} (2 passes x 5 levels a tile)")
+    if len(priced) != len(tiles):
+        raise AssertionError(f"expected one pricing per tile, got "
+                             f"{len(priced)}")
+    # the card's targets == the plain version's on the CPU, exactly
+    t0 = time.perf_counter()
+    for cube, qual_specs, where, targets in priced:
+        if where.type != "cuda":
+            raise AssertionError(f"pricing ran on {where}, not on the card")
+        cpu = J2KCodec()._price_targets(cube, qual_specs)()
+        if cpu != targets:
+            raise AssertionError(f"CUDA-priced targets {targets} != "
+                                 f"CPU-priced {cpu}")
+    log(f"[caseA] CUDA targets == plain CPU targets for {len(priced)} tiles "
+        f"(CPU pricing {time.perf_counter() - t0:.1f} s)")
+    # one tile's pricing on the card, warm: CUDA events around the enqueue
+    # of the DWT and the 14-point ladder and the copy of the sizes
+    cube, qual_specs, _, _ = priced[0]
+    dc = torch.from_numpy(cube).to("cuda")
+    codec = J2KCodec()
+    codec._price_targets(cube, qual_specs, dc)()
+    spans = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wait = codec._price_targets(cube, qual_specs, dc)
+        end.record()
+        wait()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    log(f"[caseA] pricing one tile on the card: "
+        f"{', '.join(f'{ms:.1f}' for ms in spans)} ms (CUDA events, "
+        f"{len(qual_specs)} points) on {card}")
+
+    rows = list(csv.DictReader(open(work / "runsA" / "metrics.csv",
+                                    newline=""), delimiter=";"))
+    per_tile = {tid: [r for r in rows if r["tile_id"] == tid]
+                for tid in tiles}
+    target_of = {}
+    for cube, qual_specs, _, targets in priced:
+        tid = next(t for t, c in tiles.items() if np.array_equal(c, cube))
+        for i, spec in qual_specs.items():
+            target_of[tid, int(spec.value)] = targets[i]
+    for tid, trows in per_tile.items():
+        if len(trows) != 3 * len(RATES_A):
+            raise AssertionError(f"{tid}: {len(trows)} rows, expected "
+                                 f"{3 * len(RATES_A)}")
+        for r in trows:
+            bs, q = int(r["bitstream_bytes"]), int(r["rate_value"])
+            if bs > target_of[tid, q]:
+                raise AssertionError(f"{tid} q={q}: {bs} B over the target "
+                                     f"{target_of[tid, q]}")
+    # rep 1's recon == the decoder's output of its kept streams
+    for tid in tiles:
+        for q in RATES_A:
+            rep = work / "runsA" / tid / f"quality_{q}" / "rep_01"
+            with tiff.open(rep / "recon.tif") as ds:
+                recon = ds.read()
+            for b in range(recon.shape[0]):
+                dec = JP2Decoder((rep / "bit" / f"b{b + 1:02d}.j2c")
+                                 .read_bytes()).decode_component(0, 0, 0)
+                dec = np.clip(dec, 0, 65535).astype(np.uint16)
+                if not np.array_equal(dec, recon[b]):
+                    raise AssertionError(f"{tid} q={q} band {b + 1}: "
+                                         f"recon.tif != decoded stream")
+    log(f"[caseA] {len(rows)} rows; every point within its target; rep 1 "
+        f"recons == decoded .j2c streams")
+
+    for tid, trows in per_tile.items():
+        for k in range(0, len(trows), 3):       # rate outer, rep inner
+            reps = trows[k:k + 3]
+            log(f"[caseA] {tid} q={reps[0]['rate_value']}: "
+                f"{reps[0]['bitstream_bytes']} B, psnr "
+                f"{reps[0].get('psnr_global')}; t_comp_s "
+                f"{[r['t_comp_s'] for r in reps]}, t_dec_s "
+                f"{[r['t_dec_s'] for r in reps]}")
+    log(f"[caseA] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
+        f"{launches} K2 launches, hbm peak {rows[0].get('hbm_peak_mb')} MiB "
+        f"on {card}")
+    return launches
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -263,17 +437,20 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # phase 1: build K1 from this checkout's sources, and the host coder
+    # phase 1: build K1 and K2 from this checkout's sources, and the host
+    # C++ runtime
     t0 = time.perf_counter()
     lib = build.build_library(force=True)
     build.load()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     native.load()
-    log(f"[build] host C++ coder ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] host C++ runtime (CCSDS-121 coder, J2K tier-1 and "
+        f"decoder) ready in {time.perf_counter() - t0:.1f} s")
 
-    # phase 2: K1 against its plain version
+    # phase 2: K1 and K2 against their plain versions
     k1_err, k1_ms, plain_ms = check_kernel(dev, card)
+    k2_err, k2_ms, k2_plain_ms = check_dwt97(dev, card)
 
     # phase 3: the slice
     cube = load_bench().make_caseb_cube(np.random.default_rng(2026), BANDS,
@@ -283,6 +460,11 @@ def main():
 
     # phase 4: lossy metric pass
     check_metrics(cube, dev, card)
+
+    # phase 5: the Case A slice
+    tiles = load_bench().make_casea_tiles(np.random.default_rng(2026))
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        k2_launches = run_casea(Path(tmp), tiles, card)
 
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
@@ -294,7 +476,12 @@ def main():
         "source": "tpukit_torch/csrc/fs_table.cu",
         "replaces": "tpukit/codecs/ccsds121.py:63",
         "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}
+        "ms": k1_ms, "plain_ms": plain_ms}, {
+        "name": "dwt97", "route": "cuda",
+        "source": "tpukit_torch/csrc/dwt97.cu",
+        "replaces": "tpukit/kernels/dwt_pallas.py:85",
+        "launches": k2_launches, "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": k2_plain_ms}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 """tpukit_torch never imports JAX.
 
 A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
-small Case B sweep through the port's CLI on the CPU, in two conditions:
+small Case B sweep and a small Case A sweep (J2K quality ladder, priced on
+the CPU) through the port's CLI, in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used, where no ``jax`` module may end up loaded
 either. A source scan backs it up: the port reaches tpukit only through
@@ -47,8 +48,15 @@ res = run_codec_main(["--indices", f"{out}/idx.json", "--codec", "ccsds121",
                       "--rate-key", "none", "--reps", "2", "--outdir", f"{out}/runs",
                       "--preproc", "diff1", "--nbit", "16", "--interleave", "bip",
                       "--tile", "32", "--device", "cpu"])
+tile = (rng.integers(0, 4096, (4, 64, 64)).astype(np.uint16) << 4)
+tiff.write_geotiff(f"{out}/a.tif", tile)
+manifest.write_manifest(f"{out}/idxA.json", "caseA", "tile", [{"tile_id": "A", "path": f"{out}/a.tif"}])
+resA = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k",
+                       "--rate-key", "quality", "--rates", "10", "40", "--reps", "1",
+                       "--outdir", f"{out}/runsA", "--keep-bitstream", "--device", "cpu"])
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
-                  "lossless": [r["lossless"] for r in res["rows"]]}))
+                  "lossless": [r["lossless"] for r in res["rows"]],
+                  "caseA": [r["lossless"] for r in resA["rows"]]}))
 """
 
 
@@ -62,7 +70,7 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got == {"jax": [], "lossless": [1, 1]}
+    assert got == {"jax": [], "lossless": [1, 1], "caseA": [0, 0]}
 
 
 def test_port_sources_do_not_import_jax():

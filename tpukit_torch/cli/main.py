@@ -23,8 +23,8 @@ def run_codec_main(argv=None):
                     "metrics per tile")
     ap.add_argument("--indices", required=True)
     ap.add_argument("--codec", required=True,
-                    help="codec name (ccsds121, or the reference label "
-                         "ccsds121_ext)")
+                    help="codec name (ccsds121 or j2k, or the reference "
+                         "labels ccsds121_ext and j2k_gdal)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--compressor-cmd", nargs="+", default=None)

@@ -2,7 +2,9 @@
 """The tpukit host modules the port shares, loaded without JAX.
 
 The port reuses tpukit's JAX-free host code as it is: the C++ CCSDS-121
-coder (``tpukit.native.ccsds121_host``), GeoTIFF, manifest and RAW I/O
+coder (``tpukit.native.ccsds121_host``), the JPEG 2000 tier-1 analysis and
+PCRD truncation (``tpukit.io.j2c_enc``: ``J2CPlan``, ``at_size_multi``) and
+decoder (``tpukit.io.jp2.JP2Decoder``), GeoTIFF, manifest and RAW I/O
 (``tpukit.io``), the CSV contract and the process-memory sampler
 (``tpukit.sweep.csvio``/``proc``), the quicklook writers
 (``tpukit.viz.quicklooks``) and the codec API (``tpukit.codecs.base``).
@@ -48,6 +50,8 @@ with _jax_refused():
     from tpukit.codecs.base import Codec, CodecResult, RateSpec
     from tpukit.io import manifest, raw, tiff
     from tpukit.io.bitdepth import effective_data_range
+    from tpukit.io.j2c_enc import J2CPlan, at_size_multi
+    from tpukit.io.jp2 import JP2Decoder
     from tpukit import native
     from tpukit.native import ccsds121_host
     from tpukit.sweep import csvio
@@ -55,5 +59,6 @@ with _jax_refused():
     from tpukit.viz import quicklooks
 
 __all__ = ["Codec", "CodecResult", "RateSpec", "manifest", "raw", "tiff",
-           "effective_data_range", "native", "ccsds121_host", "csvio",
+           "effective_data_range", "J2CPlan", "at_size_multi", "JP2Decoder",
+           "native", "ccsds121_host", "csvio",
            "MemorySampler", "mem_phase", "quicklooks"]

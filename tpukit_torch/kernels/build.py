@@ -2,8 +2,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``tpukit_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes. As tpukit's C++ runtime does (tpukit/native/__init__.py:31-63), the
+(``sm_90a``), one ``nvcc`` per source, all started together, and link into
+one shared library with a plain C interface, loaded with ctypes. The
+library is built with ``--fmad=false``: no multiply and add is contracted
+into an FMA, which the 9/7 DWT's rounding contract needs (csrc/dwt97.cu). As tpukit's C++ runtime does (tpukit/native/__init__.py:31-63), the
 library is keyed by a digest of the sources and flags, built at first use
 into ``tpukit_torch/csrc/build/`` and older builds are pruned. Nothing here
 runs at import: only a machine with the CUDA toolkit builds, and the CPU
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "--fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
@@ -59,23 +61,40 @@ def nvcc_path() -> str:
 
 def build_library(force: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into a cached shared library; returns its path.
-    A fresh build echoes nvcc's register and shared-memory report
-    (``-Xptxas -v``) to stderr."""
+    Each source compiles in its own ``nvcc`` process, all at once, and the
+    objects link in one more. A fresh build echoes nvcc's register and
+    shared-memory report (``-Xptxas -v``) to stderr."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libtpukit_torch_{_source_digest()}.so"
     if lib_path.exists() and not force:
         return lib_path
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{p.stem}.o" for p in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        sys.stderr.write(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = BUILD_DIR / (lib_path.name + ".tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    sys.stderr.write(proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({' '.join(link)}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, lib_path)
     for old in BUILD_DIR.glob("libtpukit_torch_*.so"):
         if old != lib_path:
             old.unlink(missing_ok=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     return lib_path
 
 
@@ -89,6 +108,13 @@ def load() -> ctypes.CDLL:
             lib.tpk_fs_table.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for name in ("tpk_dwt97_rows", "tpk_dwt97_cols"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
             lib.tpk_error_string.restype = ctypes.c_char_p
             lib.tpk_error_string.argtypes = [ctypes.c_int]
             _LIB = lib

@@ -1,0 +1,143 @@
+# -*- coding: utf-8 -*-
+"""2-D multilevel CDF 9/7 DWT (lifting) on torch tensors: the plain version.
+
+Port of the irreversible 9/7 path of tpukit/kernels/dwt.py (``_fwd97_1d``,
+``_inv97_1d``, ``_dwt2_once``, ``_idwt2_once``, ``dwt2``, ``idwt2``,
+``subband_slices``; :96-112, :176-229, :256-269): split domain,
+whole-point symmetric extension (s[n] := s[n-1], d[-1] := d[0]), the last
+axis first and then the rows of each half, and the packed Mallat layout
+[LL | HL; LH | HH] per level, in place of the level's window.
+
+Rounding contract. Every lifting step is three separately rounded float32
+operations, ``t = s + s_r``, ``t = A * t``, ``d = d + t``, and the scaling
+multiplies by ``K`` and by ``IK = float32(1/K)``, rounded once; nothing
+divides. torch runs each op as its own IEEE kernel on the CPU and on CUDA,
+so this version gives the same bits on both, and kernel K2
+(tpukit_torch/csrc/dwt97.cu, wrapper ``kernels.dwt97``) is held bit-equal
+to it on the card. tpukit's jnp transform cannot be matched bit for bit:
+XLA:CPU contracts ``d + A*(s + s_r)`` into an FMA, rewrites ``x / K`` as
+``x * (1/K)`` and fuses the scaling across the two passes of a level. The
+two agree to f32 round-off (tests/test_torch_dwt.py).
+
+The 5/3 and 9/7M transforms are not ported yet (ROADMAP.md items 14-15).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+# tpukit/kernels/dwt.py:89-93, as the float32 values both packages use
+A97 = float(np.float32(-1.586134342059924))
+B97 = float(np.float32(-0.052980118572961))
+G97 = float(np.float32(0.882911075530934))
+D97 = float(np.float32(0.443506852043971))
+K97 = float(np.float32(1.230174104914001))
+IK97 = float(np.float32(1.0 / 1.230174104914001))
+
+
+def _next(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """a[i+1] along ``axis``, with a[n] := a[n-1] (``_sym_r``)."""
+    n = a.shape[axis]
+    return torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)],
+                     axis)
+
+
+def _prev(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """a[i-1] along ``axis``, with a[-1] := a[0] (``_sym_l``)."""
+    n = a.shape[axis]
+    return torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 0, n - 1)], axis)
+
+
+def _split(x: torch.Tensor, axis: int):
+    """(even, odd) samples along ``axis``."""
+    idx = [slice(None)] * x.dim()
+    idx[axis] = slice(0, None, 2)
+    even = x[tuple(idx)]
+    idx[axis] = slice(1, None, 2)
+    return even, x[tuple(idx)]
+
+
+def _fwd97_1d(x: torch.Tensor, axis: int):
+    s, d = _split(x, axis)
+    d = d + A97 * (s + _next(s, axis))
+    s = s + B97 * (_prev(d, axis) + d)
+    d = d + G97 * (s + _next(s, axis))
+    s = s + D97 * (_prev(d, axis) + d)
+    return s * K97, d * IK97
+
+
+def _inv97_1d(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
+    s = s * IK97
+    d = d * K97
+    s = s - D97 * (_prev(d, axis) + d)
+    d = d - G97 * (s + _next(s, axis))
+    s = s - B97 * (_prev(d, axis) + d)
+    d = d - A97 * (s + _next(s, axis))
+    ax = axis % s.dim()
+    return torch.stack([s, d], ax + 1).flatten(ax, ax + 1)   # s0 d0 s1 d1 ...
+
+
+def _dwt2_once(x: torch.Tensor) -> torch.Tensor:
+    sL, sH = _fwd97_1d(x, -1)
+    LL, LH = _fwd97_1d(sL, -2)
+    HL, HH = _fwd97_1d(sH, -2)
+    return torch.cat([torch.cat([LL, HL], -1), torch.cat([LH, HH], -1)], -2)
+
+
+def _idwt2_once(c: torch.Tensor) -> torch.Tensor:
+    H2, W2 = c.shape[-2] // 2, c.shape[-1] // 2
+    sL = _inv97_1d(c[..., :H2, :W2], c[..., H2:, :W2], -2)
+    sH = _inv97_1d(c[..., :H2, W2:], c[..., H2:, W2:], -2)
+    return _inv97_1d(sL, sH, -1)
+
+
+def _check(kind: str, H: int, W: int, levels: int):
+    if kind != "97":
+        raise NotImplementedError(
+            f"dwt kind {kind!r} is not ported to tpukit_torch yet (ROADMAP.md "
+            f"'Modules to port', items 14-15); only '97' is")
+    if H % (1 << levels) or W % (1 << levels):
+        raise ValueError(f"H and W must be divisible by 2^levels (got "
+                         f"{H}x{W} at levels={levels})")
+
+
+def dwt2(x: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
+    """Multilevel forward 2-D DWT of (..., H, W), packed in place (Mallat
+    layout), as float32 on x's device."""
+    H, W = x.shape[-2], x.shape[-1]
+    _check(kind, H, W, levels)
+    out = x.to(torch.float32, copy=True)
+    for lv in range(levels):
+        h, w = H >> lv, W >> lv
+        out[..., :h, :w] = _dwt2_once(out[..., :h, :w])
+    return out
+
+
+def idwt2(c: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
+    """Inverse of :func:`dwt2`."""
+    H, W = c.shape[-2], c.shape[-1]
+    _check(kind, H, W, levels)
+    out = c.to(torch.float32, copy=True)
+    for lv in range(levels - 1, -1, -1):
+        h, w = H >> lv, W >> lv
+        out[..., :h, :w] = _idwt2_once(out[..., :h, :w])
+    return out
+
+
+def subband_slices(H: int, W: int, levels: int) -> List[Tuple[str, int, tuple]]:
+    """(name, level, (rowslice, colslice)) for the packed layout; level 0 is
+    the finest. LL only at the coarsest level."""
+    out = []
+    for lv in range(levels):
+        h = H >> lv
+        w = W >> lv
+        h2, w2 = h // 2, w // 2
+        out.append((f"HL{lv+1}", lv, (slice(0, h2), slice(w2, w))))
+        out.append((f"LH{lv+1}", lv, (slice(h2, h), slice(0, w2))))
+        out.append((f"HH{lv+1}", lv, (slice(h2, h), slice(w2, w))))
+    out.append((f"LL{levels}", levels - 1,
+                (slice(0, H >> levels), slice(0, W >> levels))))
+    return out

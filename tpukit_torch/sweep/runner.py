@@ -4,7 +4,8 @@
 Port of the single-device path of tpukit/sweep/runner.py:686-1128:
 
   * each tile cube is uploaded to the device once, and the codec reuses
-    that upload (``device_cube``) for its encode plan;
+    that upload (``device_cube``) for its device work (the CCSDS-121 encode
+    plan, the J2K byte-target pricing);
   * every (rate, rep) job runs its own metric lane (honest reps); lanes of
     identical content share one upload;
   * the device pass (``_device_pass_dispatch``) launches the quality,
