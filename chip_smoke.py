@@ -37,7 +37,25 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      the byte targets it priced on the card equal the plain version's on
      the CPU exactly, that every point's streams fit its target, and that
      rep 1's recon.tif equals the JPEG 2000 decoder's output of its kept
-     .j2c streams.
+     .j2c streams;
+  6. the J2K device fast mode (``--entropy device``): K1 and K2 against
+     their plain versions at the shapes this path gives them, timed; then
+     (a) bench.py's ``j2k_device_tiled1024`` scene row, ``run-codec --codec
+     j2k --entropy device --rate-key quality --rates 40 --reps 1 --tilex
+     1024 --tiley 1024 --no-artifacts``, on bench.py's 2000×10000×4
+     12-in-16 scene: K2 launched for every tile batch and K1 for every
+     tile and point, one CSV row with a finite PSNR, and on the scene's
+     right-hand 2000×1808 crop (all four tile shapes) the codec's bytes
+     and recons on the card equal to the plain CPU run's; the row is run a
+     second time under ``torch.profiler`` for its device-busy share;
+     (b) the untiled device ladder (bench.py's Case A command with
+     ``--entropy device`` and without ``--keep-bitstream``) on the two
+     1024²×4 tiles: on the HC tile, the CSV's bytes and rep 1's recon.tif
+     at three qualities equal the plain CPU run's; (c) the reversible
+     point ``--rate-key none --entropy device`` on the HC tile: lossless,
+     and bytes equal to the plain CPU run's; (d) a ``--rate-fit`` bpp
+     point on the HC tile's 512² corner: within its byte budget, bytes and
+     recon equal to the plain CPU run's.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -60,6 +78,7 @@ import torch
 from tpukit_torch.cli.main import run_codec_main
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
+from tpukit_torch.codecs import j2k_codec
 from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
 from tpukit_torch.host import (JP2Decoder, RateSpec, ccsds121_host, manifest,
@@ -73,6 +92,8 @@ ROOT = Path(__file__).resolve().parent
 BANDS, SIZE = 180, 512
 PLAN_CHUNK = 1 << 22
 RATES_A = [1, 2, 4, 6, 8, 10, 15, 20, 25, 30, 35, 40, 60, 100]
+SCENE_TILE = 1024
+QUALITIES_HELD = (1, 40, 100)    # points of phase 6b held against the CPU
 
 
 def log(*a):
@@ -268,7 +289,8 @@ def metric_pass(device, cube, lanes, valid):
     chunks = runner._device_pass_dispatch(
         device, ref, vm, vm, lanes, runner._metric_chunk(*cube.shape), 0.0,
         False, True, src_valid=valid, ql_caps=(255, 40), ref_host=cube)
-    return runner._device_pass_finalize(chunks, 8191, True)
+    met, e8, _ = runner._device_pass_finalize(chunks, 8191, True)
+    return met, e8
 
 
 def check_metrics(cube, dev, card):
@@ -428,6 +450,364 @@ def run_casea(work: Path, tiles, card: str):
     return launches
 
 
+def read_rows(path: Path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f, delimiter=";"))
+
+
+def num(s: str) -> float:
+    return float(s.replace(",", "."))
+
+
+def time_pair(fn_kernel, fn_plain, iters):
+    """(kernel ms, plain ms), each the mean of two CUDA-event windows
+    taken in turns: plain, kernel, kernel, plain."""
+    p1 = event_ms(fn_plain, iters)
+    k1 = event_ms(fn_kernel, iters)
+    k2 = event_ms(fn_kernel, iters)
+    p2 = event_ms(fn_plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def check_device_kernels(dev, card):
+    """Phase 6: K1 and K2 against their plain versions at the shapes the
+    device fast mode gives them: K1 at a 1024²×4 tile's dense (J=64) and
+    sparse (J=32) Rice tables, K2 at a batch of 8 scene tiles (32 planes)
+    and at the padded edge tiles' shapes. Returns {"fs_table": ...,
+    "dwt97": ...}, each (max_abs_err, ms, plain_ms, shape)."""
+    g = torch.Generator(device=dev).manual_seed(2027)
+    out = {}
+    worst = 0
+    timed = None
+    for nb, J in ((65536, 64), (131072, 32)):
+        # zigzag-mapped coefficients: magnitudes spread over 16 bits
+        x = (torch.randint(0, 65536, (nb, J), generator=g, device=dev,
+                           dtype=torch.int32)
+             >> torch.randint(0, 16, (nb, J), generator=g, device=dev,
+                              dtype=torch.int32))
+        got, want = fs_table(x), fs_table_ref(x)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 != plain at ({nb}, {J}): max|err| {err}")
+        ms, plain_ms = time_pair(lambda: fs_table(x), lambda: fs_table_ref(x),
+                                 50)
+        log(f"[K1] ({nb}, {J}): equal; kernel {ms:.4f} ms, plain torch "
+            f"{plain_ms:.4f} ms on {card}")
+        timed = timed or (ms, plain_ms, [nb, J])
+    out["fs_table"] = (worst,) + timed
+    worst = 0.0
+    timed = None
+    for shape in ((32, 1024, 1024), (32, 992, 1024), (4, 1024, 800),
+                  (4, 992, 800)):
+        x = (torch.randint(0, 4096, shape, generator=g, device=dev,
+                           dtype=torch.int32) << 4).to(torch.float32)
+        got, want = dwt97(x, 5), dwt97_ref(x, 5)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 != plain at {shape} L5: max|err| {err}")
+        if timed is None:
+            ms, plain_ms = time_pair(lambda: dwt97(x, 5),
+                                     lambda: dwt97_ref(x, 5), 10)
+            timed = (ms, plain_ms, list(shape))
+            log(f"[K2] {shape} L5: equal; kernel {ms:.4f} ms, plain torch "
+                f"{plain_ms:.4f} ms on {card}")
+        else:
+            log(f"[K2] {shape} L5: equal")
+    out["dwt97"] = (worst,) + timed
+    return out
+
+
+def make_scene(rng):
+    """bench.py's 2000×10000×4 uint16 12-in-16 Case A scene, by its recipe
+    (bench.py:415-420)."""
+    gy, gx = np.mgrid[0:2000, 0:10000]
+    sbase = ((700 + 1.1 * gy + 0.7 * gx).astype(np.int32)) % 4096
+    return (np.clip(sbase[None] + rng.integers(-300, 300, (4, 2000, 10000)),
+                    0, 4095).astype(np.uint16) << 4).astype(np.uint16)
+
+
+def tile_counts(H: int, W: int, t: int):
+    """{(th, tw): number of tiles} of a t×t tiling."""
+    counts = {}
+    for y0 in range(0, H, t):
+        for x0 in range(0, W, t):
+            s = (min(t, H - y0), min(t, W - x0))
+            counts[s] = counts.get(s, 0) + 1
+    return counts
+
+
+def busy_ms(prof) -> float:
+    """Device-busy time of a torch.profiler trace: the union of the
+    device events' intervals, in ms."""
+    ivs = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if str(e.device_type).endswith("CUDA"))
+    busy, end = 0, None
+    for a, b in ivs:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1000.0
+
+
+def run_scene(work: Path, scene: np.ndarray, dev, card):
+    """Phase 6a: bench.py's j2k_device_tiled1024 scene row through the
+    port's CLI on CUDA; returns (K1, K2) launch counts of the row."""
+    src = work / "caseA_scene_12in16.tif"
+    t0 = time.perf_counter()
+    tiff.write_geotiff(src, scene, blockxsize=512, blockysize=512)
+    idx = work / "index_scene.json"
+    manifest.write_manifest(idx, "caseA", "scene",
+                            [{"tile_id": "sceneA", "path": src}])
+    log(f"[scene] wrote the {scene.shape} scene in "
+        f"{time.perf_counter() - t0:.1f} s")
+    argv = ["--indices", str(idx), "--codec", "j2k", "--entropy", "device",
+            "--rate-key", "quality", "--rates", "40", "--reps", "1",
+            "--tilex", str(SCENE_TILE), "--tiley", str(SCENE_TILE),
+            "--no-artifacts", "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs_table.launches = 0
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    res = run_codec_main(argv + ["--outdir", str(work / "runsS")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fs_table.launches, dwt97.launches
+
+    counts = tile_counts(*scene.shape[1:], SCENE_TILE)
+    n_tiles = sum(counts.values())
+    n_batches = sum(-(-n // j2k_codec._TILE_BATCH) for n in counts.values())
+    if k2 != 2 * 5 * n_batches:
+        raise AssertionError(f"K2 launched {k2} times, expected "
+                             f"{10 * n_batches} (10 per tile batch)")
+    if k1 != 3 * n_tiles:
+        raise AssertionError(f"K1 launched {k1} times, expected "
+                             f"{3 * n_tiles} (3 Rice sizes per tile)")
+    rows = read_rows(work / "runsS" / "metrics.csv")
+    if len(rows) != 1:
+        raise AssertionError(f"expected one scene row, got {len(rows)}")
+    row = rows[0]
+    psnr = num(row["psnr_global"])
+    if row["lossless"] != "0" or not math.isfinite(psnr):
+        raise AssertionError(f"scene row: lossless {row['lossless']}, "
+                             f"psnr {row['psnr_global']}")
+    log(f"[scene] row: {row['bitstream_bytes']} B, psnr {psnr}, t_comp_s "
+        f"{row['t_comp_s']}, t_dec_s {row['t_dec_s']}, hbm peak "
+        f"{row.get('hbm_peak_mb')} MiB; {n_tiles} tiles in {n_batches} "
+        f"batches {counts}; {k1} K1 and {k2} K2 launches")
+    log(f"[scene] row wall {wall:.2f} s, phases {res['phases']} on {card}")
+
+    # the row again, traced, for its device-busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_codec_main(argv + ["--outdir", str(work / "runsS2")])
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    busy = busy_ms(prof)
+    log(f"[scene] traced row wall {traced:.2f} s, device busy {busy:.1f} ms "
+        f"({100.0 * busy / (1000.0 * traced):.2f}% busy"
+        + (", no device events traced: not measured" if busy == 0 else "")
+        + f") on {card}")
+    avgs = prof.key_averages()
+    sort = ("self_device_time_total" if avgs and hasattr(
+        avgs[0], "self_device_time_total") else "self_cuda_time_total")
+    log(avgs.table(sort_by=sort, row_limit=12, max_name_column_width=48))
+
+    # the right-hand 2000×1808 crop, every tile shape: card == plain CPU
+    crop = np.ascontiguousarray(scene[:, :, 8 * SCENE_TILE:])
+    if len(tile_counts(*crop.shape[1:], SCENE_TILE)) != 4:
+        raise AssertionError("the crop does not hold all four tile shapes")
+    spec = [RateSpec.of("quality", 40)]
+    t0 = time.perf_counter()
+    got = J2KCodec(SCENE_TILE, SCENE_TILE, entropy="device").sweep_rates(
+        crop, "uint16", spec, device_cube=torch.from_numpy(crop).to(dev))[0]
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = J2KCodec(SCENE_TILE, SCENE_TILE, entropy="device").sweep_rates(
+        crop, "uint16", spec)[0]
+    cpu_s = time.perf_counter() - t0
+    if got.recon.device.type != "cuda":
+        raise AssertionError(f"the crop's recon is on {got.recon.device}")
+    if got.bitstream_bytes != want.bitstream_bytes:
+        raise AssertionError(f"crop bytes: CUDA {got.bitstream_bytes} != "
+                             f"CPU {want.bitstream_bytes}")
+    if not torch.equal(got.recon.cpu(), want.recon):
+        raise AssertionError("crop recon: CUDA != CPU")
+    log(f"[scene] crop {crop.shape}: CUDA == plain CPU ({got.bitstream_bytes}"
+        f" B, recon equal); CUDA {cuda_s:.2f} s, CPU {cpu_s:.2f} s")
+
+    # the codec alone on the scene, for the row's breakdown: its wall and
+    # device-memory peak above the upload, and the host scan of the peak
+    # sample that each device-mode entry makes first
+    t0 = time.perf_counter()
+    np.abs(scene.astype(np.float64)).max()
+    scan_s = time.perf_counter() - t0
+    dc = torch.from_numpy(scene).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    J2KCodec(SCENE_TILE, SCENE_TILE, entropy="device").sweep_rates(
+        scene, "uint16", spec, device_cube=dc)
+    torch.cuda.synchronize()
+    codec_s = time.perf_counter() - t0
+    codec_mb = (torch.cuda.max_memory_allocated() - held) / (1 << 20)
+    log(f"[scene] codec alone: {codec_s:.3f} s, device memory peak "
+        f"{codec_mb:.1f} MiB above the {held / (1 << 20):.1f} MiB upload; "
+        f"host peak-sample scan {scan_s:.3f} s on {card}")
+    return k1, k2
+
+
+def write_index(work: Path, tiles, name: str) -> Path:
+    items = []
+    for tid, t in tiles.items():
+        p = work / f"caseA_tile_{tid}_12in16.tif"
+        if not p.exists():
+            tiff.write_geotiff(p, t, blockxsize=512, blockysize=512)
+        items.append({"tile_id": tid, "path": p})
+    idx = work / f"index_{name}.json"
+    manifest.write_manifest(idx, "caseA", "tile_1024", items)
+    return idx
+
+
+def run_device_ladder(work: Path, tiles, card):
+    """Phase 6b: the untiled device-mode quality ladder through the port's
+    CLI on CUDA; returns (K1, K2) launch counts of the sweep."""
+    idx = write_index(work, tiles, "ladder")
+    fs_table.launches = 0
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    res = run_codec_main([
+        "--indices", str(idx), "--codec", "j2k", "--entropy", "device",
+        "--rate-key", "quality", "--rates", *map(str, RATES_A),
+        "--reps", "3", "--outdir", str(work / "runsD"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fs_table.launches, dwt97.launches
+    # one DWT per tile (kept across reps), three Rice sizes per point
+    if k2 != 10 * len(tiles):
+        raise AssertionError(f"K2 launched {k2} times, expected "
+                             f"{10 * len(tiles)}")
+    if k1 != 3 * len(RATES_A) * 3 * len(tiles):
+        raise AssertionError(f"K1 launched {k1} times, expected "
+                             f"{3 * len(RATES_A) * 3 * len(tiles)}")
+    rows = read_rows(work / "runsD" / "metrics.csv")
+    if len(rows) != 3 * len(RATES_A) * len(tiles):
+        raise AssertionError(f"{len(rows)} rows")
+    for r in rows:
+        if r["lossless"] != "0" or not math.isfinite(num(r["psnr_global"])):
+            raise AssertionError(f"bad row {r}")
+
+    t0 = time.perf_counter()
+    cpu = J2KCodec(entropy="device").sweep_qualities(tiles["HC"],
+                                                     QUALITIES_HELD)
+    cpu_s = time.perf_counter() - t0
+    for q, want in zip(QUALITIES_HELD, cpu):
+        got = [int(r["bitstream_bytes"]) for r in rows
+               if r["tile_id"] == "HC" and int(r["rate_value"]) == q]
+        if got != [want.bitstream_bytes] * 3:
+            raise AssertionError(f"HC q={q}: CUDA bytes {got} != CPU "
+                                 f"{want.bitstream_bytes}")
+        with tiff.open(work / "runsD" / "HC" / f"quality_{q}" / "rep_01"
+                       / "recon.tif") as ds:
+            if not np.array_equal(ds.read(), want.recon.numpy()):
+                raise AssertionError(f"HC q={q}: CUDA recon != CPU recon")
+    log(f"[ladder] HC at q={QUALITIES_HELD}: CUDA bytes and recon.tif == "
+        f"plain CPU (CPU {cpu_s:.1f} s)")
+    for tid in tiles:
+        trows = [r for r in rows if r["tile_id"] == tid]
+        for k in range(0, len(trows), 3):
+            reps = trows[k:k + 3]
+            log(f"[ladder] {tid} q={reps[0]['rate_value']}: "
+                f"{reps[0]['bitstream_bytes']} B, psnr "
+                f"{reps[0]['psnr_global']}; t_comp_s "
+                f"{[r['t_comp_s'] for r in reps]}, t_dec_s "
+                f"{[r['t_dec_s'] for r in reps]}")
+    log(f"[ladder] sweep wall {wall:.2f} s, phases {res['phases']}, {k1} K1 "
+        f"and {k2} K2 launches, hbm peak {rows[0].get('hbm_peak_mb')} MiB "
+        f"on {card}")
+    return k1, k2
+
+
+def run_device_lossless(work: Path, tile: np.ndarray, card):
+    """Phase 6c: the reversible device point on the HC tile through the
+    port's CLI on CUDA; returns K1's launch count."""
+    idx = write_index(work, {"HC": tile}, "lossless")
+    fs_table.launches = 0
+    t0 = time.perf_counter()
+    run_codec_main([
+        "--indices", str(idx), "--codec", "j2k", "--entropy", "device",
+        "--rate-key", "none", "--reps", "1", "--no-artifacts",
+        "--outdir", str(work / "runsL"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fs_table.launches
+    if k1 != 3:
+        raise AssertionError(f"K1 launched {k1} times, expected 3")
+    (row,) = read_rows(work / "runsL" / "metrics.csv")
+    want = J2KCodec(entropy="device").run(tile, "uint16", RateSpec.none())
+    if (row["lossless"], row["max_abs_err"]) != ("1", "0"):
+        raise AssertionError(f"not lossless: {row}")
+    if int(row["bitstream_bytes"]) != want.bitstream_bytes:
+        raise AssertionError(f"lossless bytes: CUDA {row['bitstream_bytes']}"
+                             f" != CPU {want.bitstream_bytes}")
+    log(f"[lossless] HC: {row['bitstream_bytes']} B == plain CPU, t_comp_s "
+        f"{row['t_comp_s']}, t_dec_s {row['t_dec_s']}; wall {wall:.2f} s, "
+        f"{k1} K1 launches on {card}")
+    return k1
+
+
+def run_device_rate_fit(work: Path, tile: np.ndarray, card):
+    """Phase 6d: a ``--rate-fit`` bpp point (the base step bisected on the
+    card against the byte budget) on the HC tile's 512² corner through
+    the port's CLI on CUDA; returns K1's launch count."""
+    corner = np.ascontiguousarray(tile[:, :512, :512])
+    idx = write_index(work, {"HC512": corner}, "ratefit")
+    bpp = 2.0
+    fs_table.launches = 0
+    t0 = time.perf_counter()
+    run_codec_main([
+        "--indices", str(idx), "--codec", "j2k", "--entropy", "device",
+        "--rate-key", "bpp", "--rates", str(bpp), "--rate-fit",
+        "--reps", "1", "--outdir", str(work / "runsF"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fs_table.launches
+    # 24 bisection probes and the fitted point, three Rice sizes each
+    if k1 != 3 * 25:
+        raise AssertionError(f"K1 launched {k1} times, expected {3 * 25}")
+    (row,) = read_rows(work / "runsF" / "metrics.csv")
+    target = bpp * corner.size / 8.0
+    t0 = time.perf_counter()
+    want = J2KCodec(entropy="device", rate_fit=True).run(
+        corner, "uint16", RateSpec.of("bpp", bpp))
+    cpu_s = time.perf_counter() - t0
+    got = int(row["bitstream_bytes"])
+    if got != want.bitstream_bytes or got > target:
+        raise AssertionError(f"rate fit: CUDA {got} B, CPU "
+                             f"{want.bitstream_bytes} B, target {target}")
+    (recon_tif,) = (work / "runsF" / "HC512").glob("*/rep_01/recon.tif")
+    with tiff.open(recon_tif) as ds:
+        if not np.array_equal(ds.read(), want.recon.numpy()):
+            raise AssertionError("rate fit: CUDA recon != CPU recon")
+    log(f"[rate fit] HC 512²: {got} B of a {target:.0f} B budget == plain "
+        f"CPU (base step {want.extras['base_step']}, CPU {cpu_s:.1f} s), "
+        f"t_comp_s {row['t_comp_s']}, t_dec_s {row['t_dec_s']}; wall "
+        f"{wall:.2f} s, {k1} K1 launches on {card}")
+    return k1
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -466,22 +846,47 @@ def main():
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         k2_launches = run_casea(Path(tmp), tiles, card)
 
+    # phase 6: the J2K device fast mode
+    t6 = time.perf_counter()
+    fast = check_device_kernels(dev, card)
+    scene = make_scene(np.random.default_rng(2026))
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        scene_k1, scene_k2 = run_scene(Path(tmp), scene, dev, card)
+        del scene
+        ladder_k1, ladder_k2 = run_device_ladder(Path(tmp), tiles, card)
+        lossless_k1 = run_device_lossless(Path(tmp), tiles["HC"], card)
+        fit_k1 = run_device_rate_fit(Path(tmp), tiles["HC"], card)
+    log(f"[fast mode] phase 6 in {time.perf_counter() - t6:.1f} s")
+
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
     if jax_loaded:
         raise AssertionError(f"JAX was imported: {jax_loaded}")
 
+    # launches and times are the device fast mode's (the scene row, and
+    # the shapes it gives each kernel); every path's count is listed too
     kernels = {"kernels": [{
         "name": "fs_table", "route": "cuda",
         "source": "tpukit_torch/csrc/fs_table.cu",
         "replaces": "tpukit/codecs/ccsds121.py:63",
-        "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}, {
+        "launches": scene_k1, "max_abs_err": max(k1_err, fast["fs_table"][0]),
+        "ms": fast["fs_table"][1], "plain_ms": fast["fs_table"][2],
+        "shape": fast["fs_table"][3],
+        "launches_by_path": {"caseB_anchor": launches, "scene_row": scene_k1,
+                             "device_ladder": ladder_k1,
+                             "device_lossless": lossless_k1,
+                             "device_rate_fit": fit_k1},
+        "anchor_shape_ms": k1_ms, "anchor_shape_plain_ms": plain_ms}, {
         "name": "dwt97", "route": "cuda",
         "source": "tpukit_torch/csrc/dwt97.cu",
         "replaces": "tpukit/kernels/dwt_pallas.py:85",
-        "launches": k2_launches, "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain_ms}]}
+        "launches": scene_k2, "max_abs_err": max(k2_err, fast["dwt97"][0]),
+        "ms": fast["dwt97"][1], "plain_ms": fast["dwt97"][2],
+        "shape": fast["dwt97"][3],
+        "launches_by_path": {"caseA_ebcot": k2_launches,
+                             "scene_row": scene_k2,
+                             "device_ladder": ladder_k2},
+        "caseA_shape_ms": k2_ms, "caseA_shape_plain_ms": k2_plain_ms}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

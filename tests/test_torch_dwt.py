@@ -102,6 +102,6 @@ def test_kernel_constants_are_the_plain_versions():
 def test_other_kinds_and_sizes_raise():
     x = torch.zeros((1, 64, 64))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdwt.dwt2(x, "53", 3)
+        tdwt.dwt2(x, "97m", 3)
     with pytest.raises(ValueError, match="divisible"):
         tdwt.dwt2(torch.zeros((1, 48, 64)), "97", 5)

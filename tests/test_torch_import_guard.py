@@ -2,8 +2,9 @@
 """tpukit_torch never imports JAX.
 
 A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
-small Case B sweep and a small Case A sweep (J2K quality ladder, priced on
-the CPU) through the port's CLI, in two conditions:
+small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
+the CPU) and a small tiled J2K device-mode sweep through the port's CLI,
+in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used, where no ``jax`` module may end up loaded
 either. A source scan backs it up: the port reaches tpukit only through
@@ -54,9 +55,13 @@ manifest.write_manifest(f"{out}/idxA.json", "caseA", "tile", [{"tile_id": "A", "
 resA = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k",
                        "--rate-key", "quality", "--rates", "10", "40", "--reps", "1",
                        "--outdir", f"{out}/runsA", "--keep-bitstream", "--device", "cpu"])
+resT = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
+                       "--rate-key", "quality", "--rates", "40", "--reps", "1",
+                       "--tilex", "48", "--tiley", "48", "--outdir", f"{out}/runsT", "--device", "cpu"])
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "lossless": [r["lossless"] for r in res["rows"]],
-                  "caseA": [r["lossless"] for r in resA["rows"]]}))
+                  "caseA": [r["lossless"] for r in resA["rows"]],
+                  "caseA_device_tiled": [r["lossless"] for r in resT["rows"]]}))
 """
 
 
@@ -70,7 +75,8 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got == {"jax": [], "lossless": [1, 1], "caseA": [0, 0]}
+    assert got == {"jax": [], "lossless": [1, 1], "caseA": [0, 0],
+                   "caseA_device_tiled": [0]}
 
 
 def test_port_sources_do_not_import_jax():

@@ -170,13 +170,17 @@ def test_port_lossless_sweep_equals_tpukit(tmp_path, casea_tiles):
                                        ({"tilex": 64}, "sweep"),
                                        ({"tiley": 32}, "run")])
 def test_what_is_not_ported_raises(rng, opts, spec):
+    """Device-mode streams (``keep_bitstream`` with ``entropy="device"``,
+    whole cubes and tiles) and the mesh sweep raise, naming their ROADMAP
+    items."""
     from tpukit_torch.host import RateSpec
 
     cube = rng.integers(0, 4096, (4, 96, 160)).astype(np.uint16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        codec = J2KCodec(**opts)
-        rate = RateSpec.of("quality", 40)
-        if spec == "sweep":
-            codec.sweep_rates(cube, "uint16", [rate])
-        else:
-            codec.run(cube, "uint16", rate)
+    codec = J2KCodec(**{**opts, "entropy": "device"})
+    rate = RateSpec.of("quality", 40)
+    call = codec.run if spec == "run" else codec.sweep_rates
+    arg = rate if spec == "run" else [rate]
+    with pytest.raises(NotImplementedError, match="item 22"):
+        call(cube, "uint16", arg, keep_bitstream=True)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        J2KCodec(**opts).sweep_rates(cube, "uint16", [rate], mesh=object())

@@ -116,7 +116,8 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
 @pytest.mark.parametrize("extra", [["--mesh", "2"], ["--stream-rows", "64"],
                                    ["--profile", "prof"],
                                    ["--compressor-cmd", "aec"],
-                                   ["--codec", "j2k", "--entropy", "device"],
+                                   ["--codec", "j2k", "--entropy", "device",
+                                    "--keep-bitstream"],
                                    ["--codec", "png"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     """Options and codecs the port does not have yet raise, naming their

@@ -5,7 +5,8 @@
 (tpukit/cli/main.py:26-189, reference tools/run_codec.py:374-399) on a
 torch device, plus ``--device`` (default ``cuda``; an absent card is an
 error, not a fall back to the CPU). Flags the port cannot honour yet
-(``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``) raise
+(``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``, and
+``--keep-bitstream`` with ``--entropy device``) raise
 ``NotImplementedError``.
 """
 
@@ -86,7 +87,10 @@ def run_codec_main(argv=None):
              "item 20 (the external-wrapper codec)"),
             ("--profile", args.profile, "item 20 (torch.profiler)"),
             ("--mesh", args.mesh, "item 21 (multi-GPU)"),
-            ("--stream-rows", args.stream_rows, "item 18 (scene streaming)")):
+            ("--stream-rows", args.stream_rows, "item 18 (scene streaming)"),
+            ("--keep-bitstream with --entropy device",
+             (args.keep_bitstream and args.entropy == "device") or None,
+             "item 22 (the host Rice/bit-plane/run-length coder)")):
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to tpukit_torch yet "

@@ -20,7 +20,10 @@ Where the port differs from the JAX code, and why:
   * integer sums are kept exact (torch sums int32 into int64) and the plan
     folds the chunk chain in Python ints, as tpukit does (:644-655);
   * ``pack_words``/``encode_device`` (the on-device bit packer) are not on
-    the anchor path and are not ported yet.
+    the anchor path and are not ported yet;
+  * ``encode_size_rows`` sizes each row of a 2-D tensor with one pass over
+    the flattened rows (one K1 launch), where tpukit vmaps ``encode_size``
+    over the rows (tpukit/codecs/j2k_codec.py:328-334, :352-355).
 """
 
 from __future__ import annotations
@@ -91,9 +94,7 @@ def analyze(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     n = x.shape[0]
     if n % J:
         raise ValueError(f"whole blocks required: {n} samples, J={J}")
-    # ID_LEN/KMAX are the 4-bit-ID regime of the standard
-    if not 8 < bits <= 16:
-        raise ValueError(f"device model supports 8 < bits <= 16, got {bits}")
+    _check_bits(bits)
     dev = x.device
     nb = n // J
 
@@ -120,7 +121,43 @@ def analyze(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     is_min = (split_len == best).to(torch.int8)
     mlo = torch.argmax(is_min, 1).to(torch.int32)
     mhi = (KMAX - torch.argmax(is_min.flip(1), 1)).to(torch.int32)
-    split_min = best[:, 0]
+
+    option, blk_bits, allzero = _block_bits(coded, best[:, 0], is_ref, m,
+                                            bits, rsi, nb)
+
+    # k-state chain: zero blocks are the identity clamp (0, KMAX)
+    lo_e = torch.where(allzero, 0, mlo)
+    hi_e = torch.where(allzero, KMAX, mhi)
+    k_lo_out, k_hi_out = _compose_clamps(lo_e, hi_e)
+
+    total_bits = blk_bits.sum(dtype=torch.int64)
+    return {
+        "option": option,
+        "blk_bits": blk_bits,
+        "total_bits": total_bits,
+        "nbytes": (total_bits + 7) // 8,
+        "k_lo_out": k_lo_out,
+        "k_hi_out": k_hi_out,
+    }
+
+
+def _check_bits(bits: int):
+    # ID_LEN/KMAX are the 4-bit-ID regime of the standard
+    if not 8 < bits <= 16:
+        raise ValueError(f"device model supports 8 < bits <= 16, got {bits}")
+
+
+def _block_bits(coded: torch.Tensor, split_min: torch.Tensor,
+                is_ref: torch.Tensor, m: torch.Tensor, bits: int, rsi: int,
+                row_blocks: int):
+    """(option, blk_bits, allzero) per block from the (nb, J) coded
+    residuals and each block's least split length: the option choice and
+    the zero-run segmentation of tpukit ``analyze`` (:173-240). Runs are
+    segmented within rows of ``row_blocks`` blocks (the whole stream when
+    that is nb): a row starts and ends a segment."""
+    nb = coded.shape[0]
+    dev = coded.device
+    bidx = torch.arange(nb, dtype=torch.int32, device=dev)
 
     # ---- second extension (γ capped: SE only wins below nc_len bits) ---
     GCAP = 1 << 20
@@ -137,11 +174,6 @@ def analyze(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     # ---- zero blocks ---------------------------------------------------
     allzero = (coded == 0).all(1)
 
-    # k-state chain: zero blocks are the identity clamp (0, KMAX)
-    lo_e = torch.where(allzero, 0, mlo)
-    hi_e = torch.where(allzero, KMAX, mhi)
-    k_lo_out, k_hi_out = _compose_clamps(lo_e, hi_e)
-
     # option choice (mirrors native emit_block: SE wins ties vs split); the
     # selected k lies in [mlo, mhi], so the split length is the row minimum
     use_se = (se_len <= split_min) & (se_len < nc_len)
@@ -153,16 +185,17 @@ def analyze(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     nonzero_bits = ID_LEN + torch.where(is_ref, bits, 0) + payload
 
     # ---- zero-run segmentation -----------------------------------------
-    cb = bidx % rsi                       # position within RSI chunk
+    local = bidx % row_blocks             # block index within its row
+    cb = local % rsi                      # position within RSI chunk
     seg_break_before = (cb == 0) | (cb % SEGMENT_BLOCKS == 0)
     false1 = torch.zeros(1, dtype=torch.bool, device=dev)
     prev_zero = torch.cat([false1, allzero[:-1]])
     run_start = allzero & (seg_break_before | ~prev_zero | is_ref)
     # head index for every block (running max of run-start positions)
     head_idx = torch.cummax(torch.where(run_start, bidx, -1), 0).values
-    nxt = cb[:-1] + 1
-    at_seg_end = torch.cat([(nxt == rsi) | (nxt % SEGMENT_BLOCKS == 0),
-                            ~false1])
+    nxt = cb + 1
+    at_seg_end = ((nxt == rsi) | (nxt % SEGMENT_BLOCKS == 0)
+                  | (local == row_blocks - 1))
     nxt_break = at_seg_end | torch.cat([~allzero[1:] | is_ref[1:], ~false1])
     run_end = allzero & nxt_break
     z = bidx - head_idx + 1
@@ -173,15 +206,34 @@ def analyze(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     zero_bits = torch.where(run_end, marker_bits, 0)
 
     blk_bits = torch.where(allzero, zero_bits, nonzero_bits).to(torch.int32)
-    total_bits = blk_bits.sum(dtype=torch.int64)
-    return {
-        "option": option.to(torch.int32),
-        "blk_bits": blk_bits,
-        "total_bits": total_bits,
-        "nbytes": (total_bits + 7) // 8,
-        "k_lo_out": k_lo_out,
-        "k_hi_out": k_hi_out,
-    }
+    return option.to(torch.int32), blk_bits, allzero
+
+
+def encode_size_rows(x: torch.Tensor, bits: int = 16, J: int = 8,
+                     rsi: int = 2) -> torch.Tensor:
+    """(R,) int64 exact byte sizes of each row of the (R, n) samples,
+    coded on its own with the preprocessor off: the counterpart of
+    ``jax.vmap(lambda v: encode_size(v, bits, J, rsi, preprocess=False))``.
+
+    Without the preprocessor a block's cost depends on its own samples
+    only, and the zero-run segmentation is cut at every row's start and
+    end, so one pass over the flattened rows gives every row's blocks (one
+    K1 launch for all rows); the k-state chain, which sizes do not need,
+    is skipped. A partial final block of a row is padded by repeating the
+    row's last sample, as ``encode_size`` does."""
+    _check_bits(bits)
+    R, n = x.shape
+    pad = (-n) % J
+    if pad:
+        x = torch.cat([x, x[:, -1:].expand(R, pad)], 1)
+    nbr = (n + pad) // J
+    coded = x.to(torch.int32).reshape(R * nbr, J).contiguous()
+    ks = torch.arange(KMAX + 1, dtype=torch.int32, device=x.device)
+    split_min = (fs_table(coded) + J * (ks + 1)).amin(1)
+    is_ref = torch.zeros(R * nbr, dtype=torch.bool, device=x.device)
+    m = torch.full((R * nbr,), J, dtype=torch.int32, device=x.device)
+    _, blk_bits, _ = _block_bits(coded, split_min, is_ref, m, bits, rsi, nbr)
+    return (blk_bits.reshape(R, nbr).sum(1, dtype=torch.int64) + 7) // 8
 
 
 def encode_size(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,

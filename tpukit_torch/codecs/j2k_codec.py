@@ -1,31 +1,45 @@
 # -*- coding: utf-8 -*-
-"""JPEG 2000 codec, standard-codestream (``ebcot``) backend — port of
-tpukit/codecs/j2k_codec.py.
+"""JPEG 2000-class wavelet codec — port of tpukit/codecs/j2k_codec.py.
 
-Per band, tpukit's host C++ writes ISO/IEC 15444-1 codestreams
-(``tpukit.io.j2c_enc``: EBCOT tier-1 and PCRD-opt truncation) and decodes
-them (``tpukit.io.jp2.JP2Decoder``); the port imports both unchanged. A
-quality ladder costs one tier-1 analysis per tile (``J2CPlan``): each lossy
-point is a PCRD truncation of it to a byte target (``at_size_multi``).
+Two entropy backends, as in tpukit (``entropy=``):
 
-The device work is the pricing of those targets: for QUALITY points the
-target is the byte size that the light integer size model
-(``wenc_size_bytes_light``: embedded bit-plane and run-length candidates)
-gives the cube quantized at that quality's steps. That is a 5-level 9/7
-DWT of the padded cube (kernel K2, ``kernels.dwt97``, on CUDA) and a
-ladder of size models, on the device of the sweep's cube upload
-(``device_cube``). The targets are budgets, so they must not depend on
-where they were computed (tpukit j2k_codec.py:1229-1237): the DWT follows
-a rounding contract that gives the same bits on the CPU and on CUDA, and
-the models are integer, so the port prices the same targets on either.
-tpukit priced on its local CPU in a worker thread with a 30 s timeout and
-an inline fallback; here the DWT and the ladder are enqueued on the CUDA
-stream before the host's tier-1 analysis and read back after it, so the
-overlap comes from CUDA's asynchrony and nothing can time out.
+* ``"ebcot"`` (default): per band, tpukit's host C++ writes ISO/IEC
+  15444-1 codestreams (``tpukit.io.j2c_enc``: EBCOT tier-1 and PCRD-opt
+  truncation) and decodes them (``tpukit.io.jp2.JP2Decoder``); the port
+  imports both unchanged. A quality ladder costs one tier-1 analysis per
+  tile (``J2CPlan``): each lossy point is a PCRD truncation of it to a byte
+  target (``at_size_multi``). The device work is the pricing of those
+  targets: for QUALITY points the target is the byte size that the light
+  integer size model (``wenc_size_bytes_light``) gives the cube quantized
+  at that quality's steps, after a 5-level 9/7 DWT (kernel K2,
+  ``kernels.dwt97``, on CUDA) on the device of the sweep's cube upload
+  (``device_cube``). The targets are budgets, so they must not depend on
+  where they were computed (tpukit j2k_codec.py:1229-1237): the DWT follows
+  a rounding contract that gives the same bits on the CPU and on CUDA, and
+  the models are integer. The DWT and the ladder are enqueued on the CUDA
+  stream before the host's tier-1 analysis and read back after it (tpukit
+  used a worker thread with a 30 s timeout and an inline fallback).
+* ``"device"``: the fast mode, where no host entropy coder runs. Lossy
+  points quantize the 9/7 DWT (kernel K2) with per-subband deadzone steps,
+  and their stream sizes come from the exact size model of the host coder
+  (``wenc_size_bytes``: the smallest of the CCSDS-121 Rice candidates,
+  whose cost tables go through kernel K1, the run-length model and the
+  bit-plane model); the reconstructions are requantized from the same
+  coefficients on the device. Lossless points use the reversible integer
+  5/3 DWT, whose inverse is the decoder's output. ``rate_fit`` bisects the
+  base step on the device against a bpp/cr byte budget. The streams
+  themselves are not built: ``keep_bitstream`` needs the host coder of
+  tpukit/codecs/wavelet_common.py, which imports JAX, and raises (ROADMAP
+  item 22).
 
-Not ported yet: the device entropy backend (``entropy="device"``) and
-JP2-style independent tiles (``tilex``/``tiley`` smaller than the cube),
-ROADMAP.md 'Modules to port', item 14.
+Both backends take JP2-style independent tiles (``tilex``/``tiley``);
+device-mode quality ladders batch same-shape tiles on the device.
+
+Quantizing is ``trunc(c * inv_step)`` in float32 with the f32 -> int32
+conversion saturating as XLA's does (:func:`quantize`). The device-mode
+results on CUDA equal those on the CPU bit for bit (the transforms follow
+the rounding contract of ``kernels.dwt``, the models are integer); against
+tpukit they agree to the f32 round-off of the 9/7 DWT.
 """
 
 from __future__ import annotations
@@ -40,10 +54,13 @@ import numpy as np
 import torch
 
 from tpukit_torch.codecs import wavelet_common as wc
+from tpukit_torch.codecs.base import device_work, edge_pad, work_device
 from tpukit_torch.codecs.bitplane_model import bpc_size_bytes
+from tpukit_torch.codecs.ccsds121 import encode_size_rows
 from tpukit_torch.host import (Codec, CodecResult, J2CPlan, JP2Decoder,
-                               RateSpec, at_size_multi, mem_phase)
-from tpukit_torch.kernels.dwt import idwt2, subband_slices
+                               RateSpec, at_size_multi, mem_phase,
+                               trailing_zero_shift)
+from tpukit_torch.kernels.dwt import dwt2, idwt2, subband_slices
 from tpukit_torch.kernels.dwt97 import dwt97
 
 LEVELS = 5
@@ -52,7 +69,17 @@ LEVELS = 5
 # tile; see the pcache insertion in _sweep_ebcot
 _PCACHE_BYTES = int(2e9)
 
-_NOT_PORTED = "ROADMAP.md 'Modules to port', item 14 (J2K device fast mode)"
+# tiles per device batch of the tiled device sweep: bounds its working set
+# (32 planes of 1024² f32 = 128 MB per array); results do not depend on it
+_TILE_BATCH = 8
+
+_NOT_PORTED_KEEP = ("ROADMAP.md 'Modules to port', item 22 (device-mode "
+                    "--keep-bitstream: the host Rice/bit-plane/run-length "
+                    "coder)")
+_NOT_PORTED_MESH = "ROADMAP.md 'Modules to port', item 21 (multi-GPU)"
+
+# the harness context a tile-by-tile run hands on to each tile
+_TILE_OPTS = ("device_plan_cache", "dedupe_reps", "device_cube")
 
 
 def quality_from_cr(cr: float) -> int:
@@ -148,6 +175,27 @@ def _subband_steps(H: int, W: int, base: float) -> np.ndarray:
     return steps
 
 
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def quantize(c: torch.Tensor, inv_step) -> torch.Tensor:
+    """The coder's multiply quantizer ``trunc(c * inv_step)`` as int32.
+    The conversion saturates as XLA's does (tpukit's
+    ``jnp.trunc(...).astype(int32)``): at or above 2^31 gives INT32_MAX, at
+    or below -2^31 INT32_MIN, NaN 0. torch's own conversion of values out
+    of range differs between the CPU and CUDA; the rate fit's bisection
+    probes steps small enough to reach them."""
+    t = torch.trunc(c * inv_step)
+    q = t.clamp(float(_I32_MIN), float(1 << 31) - 128).nan_to_num(0.0)
+    return torch.where(t >= float(1 << 31), _I32_MAX, q.to(torch.int32))
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 value mod 2^32, as a signed 32-bit value (in int64)."""
+    v = v & 0xFFFFFFFF
+    return torch.where(v >= (1 << 31), v - (1 << 32), v)
+
+
 def wenc_size_bytes_light(qc: torch.Tensor, segbounds=None,
                           consts: wc.RleModelConsts | None = None
                           ) -> torch.Tensor:
@@ -162,39 +210,204 @@ def wenc_size_bytes_light(qc: torch.Tensor, segbounds=None,
     return torch.where(fits, torch.minimum(size_bpc, size_rle), size_bpc)
 
 
+def wenc_size_bytes(qc: torch.Tensor, segbounds=None,
+                    consts: wc.RleModelConsts | None = None) -> torch.Tensor:
+    """Exact per-band byte length of the host coder's stream
+    (tpukit ``wavelet_common.wenc_encode``) over the last axis of
+    scan-ordered int32 coefficients, int64 (port of tpukit
+    j2k_codec.py:300-361). Where the values fit int16: the smaller of the
+    Rice backend (the CCSDS-121 coder over zigzag-mapped values, +1 header
+    byte; dense J=64/RSI=2 or sparse J=32/RSI=8 by the rule nnz·32 < n) and
+    the run-length model. Otherwise: the smaller of the bit-plane model and
+    the Rice-split candidate (s raw LSBs per value, 2 header bytes, and the
+    Rice size of the 16-bit high parts). The Rice sizes are
+    :func:`ccsds121.encode_size_rows` of all bands at once (kernel K1 on
+    CUDA). A band length that is not a whole number of Rice blocks leaves
+    only the bit-plane and run-length candidates, as the host coder does.
+
+    The zigzag maps are int64 with explicit 32-bit wrap-around in place of
+    tpukit's int32/uint32 arithmetic."""
+    fits = (qc.amax(-1) <= 32767) & (qc.amin(-1) >= -32768)
+    qcc = qc.clamp(-32768, 32767)
+    size_rle = wc.rle_size_bytes_model(qcc, segbounds, consts)
+    size_bpc = bpc_size_bytes(qc)
+    n = qc.shape[-1]
+    if n % wc.RICE_J:
+        return torch.where(fits, torch.minimum(size_bpc, size_rle), size_bpc)
+    zf = torch.where(qcc >= 0, 2 * qcc, -2 * qcc - 1).reshape(-1, n)
+    size_dense = encode_size_rows(zf, wc.RICE_BITS, wc.RICE_J, wc.RICE_RSI)
+    size_sparse = encode_size_rows(zf, wc.RICE_BITS, wc.RICE_J_SPARSE,
+                                   wc.RICE_RSI_SPARSE)
+    sparse = ((qc != 0).sum(-1) * 32 < n).reshape(-1)
+    size_rice = 1 + torch.where(sparse, size_sparse,
+                                size_dense).reshape(fits.shape)
+    # Rice-split: z = (qc << 1) ^ (qc >> 31) mod 2^32; s = how many bits of
+    # max(z) lie above the low 16, so z >> s fits 16 bits
+    q64 = qc.to(torch.int64)
+    z32 = ((q64 << 1) ^ (q64 >> 31)) & 0xFFFFFFFF
+    maxz = z32.amax(-1)
+    s = torch.zeros_like(maxz)
+    for i in range(16):
+        s = s + (maxz >= (1 << (16 + i))).to(torch.int64)
+    zhi = ((z32 >> s[..., None]) & 0xFFFF).reshape(-1, n)
+    size_hi = encode_size_rows(zhi, wc.RICE_BITS, wc.RICE_J,
+                               wc.RICE_RSI).reshape(fits.shape)
+    lsb_bytes = (n // 8) * s + ((n % 8) * s + 7) // 8
+    size_split = 2 + lsb_bytes + size_hi
+    return torch.where(fits, torch.minimum(size_rice, size_rle),
+                       torch.minimum(size_bpc, size_split))
+
+
+def _ladder(perm: torch.Tensor, inv_scale_perm: torch.Tensor, inv_bases,
+            size_fn) -> torch.Tensor:
+    """(Q, B) sizes of the scan-ordered coefficients quantized at each
+    float32 ``inv_bases`` point with ``trunc(c * (inv_scale * inv_base))``.
+    One point's temporaries are alive at a time (``lax.map``'s
+    counterpart)."""
+    return torch.stack([size_fn(quantize(perm,
+                                         inv_scale_perm * float(inv_base)))
+                        for inv_base in inv_bases])
+
+
+def _perm(coefs: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) coefficients -> (B, H·W) in scan order."""
+    return torch.index_select(coefs.reshape(coefs.shape[0], -1), 1, order)
+
+
 def ladder_sizes_light(coefs: torch.Tensor, order: torch.Tensor,
                        inv_scale_perm: torch.Tensor, inv_bases,
                        segbounds, consts: wc.RleModelConsts | None = None
                        ) -> torch.Tensor:
     """(Q, B) int64 light-model stream sizes for a quality ladder (the
     ``light=True`` branch of tpukit ``_device_ladder_sizes``, :403-424).
-    The scan-order gather runs once; each point is quantized with the
-    coder's multiply quantizer ``trunc(c * (inv_scale * inv_base))`` and
-    sized in turn, so only one point's temporaries are alive at a time
-    (the loop is ``lax.map``'s counterpart). ``inv_bases`` are float32
-    values."""
-    B = coefs.shape[0]
-    perm = torch.index_select(coefs.reshape(B, -1), 1, order)
-    out = []
-    for inv_base in inv_bases:
-        qc = torch.trunc(perm * (inv_scale_perm * float(inv_base))).to(
-            torch.int32)
-        out.append(wenc_size_bytes_light(qc, segbounds, consts))
-    return torch.stack(out)
+    The scan-order gather runs once."""
+    return _ladder(_perm(coefs, order), inv_scale_perm, inv_bases,
+                   lambda q: wenc_size_bytes_light(q, segbounds, consts))
+
+
+def ladder_sizes(coefs: torch.Tensor, order: torch.Tensor,
+                 inv_scale_perm: torch.Tensor, inv_bases, segbounds,
+                 consts: wc.RleModelConsts | None = None) -> torch.Tensor:
+    """(Q, B) int64 exact stream sizes for a quality ladder (the full
+    branch of tpukit ``_device_ladder_sizes``, :403-424; one point is
+    tpukit's ``_device_perm_sizes``, :389-400)."""
+    return _ladder(_perm(coefs, order), inv_scale_perm, inv_bases,
+                   lambda q: wenc_size_bytes(q, segbounds, consts))
+
+
+def tiled_ladder_sizes(coefs_nb: torch.Tensor, order: torch.Tensor,
+                       inv_scale_perm: torch.Tensor, inv_bases, segbounds,
+                       consts: wc.RleModelConsts | None = None
+                       ) -> torch.Tensor:
+    """(n_tiles, Q, B) exact stream sizes of a batch of same-shape tiles
+    (n_tiles, B, Hp, Wp): tile by tile, each tile's ladder as
+    :func:`ladder_sizes` (port of tpukit ``_tiled_ladder_sizes``,
+    :427-448)."""
+    return torch.stack([ladder_sizes(c, order, inv_scale_perm, inv_bases,
+                                     segbounds, consts) for c in coefs_nb])
+
+
+def lossless_sizes(coefs: torch.Tensor, order: torch.Tensor, segbounds,
+                   consts: wc.RleModelConsts | None = None) -> torch.Tensor:
+    """(B,) exact byte counts of the reversible streams over the 5/3
+    coefficients (port of tpukit ``_device_lossless_sizes``, :451-458)."""
+    return wenc_size_bytes(_perm(coefs.to(torch.int32), order), segbounds,
+                           consts)
+
+
+def requant_recon_ladder(coefs: torch.Tensor, inv_scale: torch.Tensor,
+                         scale: torch.Tensor, inv_bases, bases, levels: int,
+                         H0: int, W0: int, lo: int, hi: int,
+                         dtype: torch.dtype):
+    """Quantize, dequantize and inverse-transform the (B, Hp, Wp) 9/7
+    coefficients at each (float32) ladder point (port of tpukit
+    ``_device_requant_recon_ladder``, :246-275). Returns the
+    reconstructions (Q, B, H0, W0) in ``dtype`` and two int32 wrap-around
+    checksums per point, sum(qc) and sum(qc·qc), as int64 tensors (Q,).
+
+    The dequantizer restores a nonzero q to the middle of its bin,
+    ``(q + sign(q)/2) * step``; the inverse DWT is the plain
+    ``kernels.dwt.idwt2`` (tpukit has no inverse Pallas kernel); the
+    result is rounded half to even and clipped to [lo, hi]."""
+    recons, s1, s2 = [], [], []
+    for inv_base, base in zip(inv_bases, bases):
+        qc = quantize(coefs, (inv_scale * float(inv_base))[None])
+        q64 = qc.to(torch.int64)
+        s1.append(_wrap_i32(q64.sum()))
+        s2.append(_wrap_i32(((q64 * q64) & 0xFFFFFFFF).sum()))
+        qf = qc.to(torch.float32)
+        deq = torch.where(qc != 0,
+                          (qf + torch.sign(qf) * 0.5) * (scale * float(base)),
+                          0.0)
+        rec = idwt2(deq, "97", levels)[:, :H0, :W0]
+        recons.append(torch.clamp(torch.round(rec), lo, hi).to(dtype))
+    return torch.stack(recons), torch.stack(s1), torch.stack(s2)
+
+
+def fit_base(perm_coefs: torch.Tensor, perm_scale: torch.Tensor,
+             target_bytes: float, iters: int = 24, segbounds=None,
+             consts: wc.RleModelConsts | None = None) -> torch.Tensor:
+    """Rate targeting on the device (port of tpukit ``_fit_base_device``,
+    :195-226): a geometric bisection of the base quantization step over
+    [1e-3, 1e7] in float32, each probe priced with the exact size model
+    (:func:`wenc_size_bytes`) of the scan-ordered coefficients. Returns
+    the smallest probed step whose total size is at most the target, as a
+    float32 scalar tensor. Nothing comes back to the host inside the loop;
+    the size is compared with the target in float32, as JAX promotes the
+    int32 sum against the float32 target. Every float32 operation rounds
+    as IEEE prescribes, so the CPU and CUDA probe the same steps."""
+    dev = perm_coefs.device
+    inv_scale = 1.0 / perm_scale
+    target = torch.tensor(target_bytes, dtype=torch.float32, device=dev)
+    lo = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    hi = torch.tensor(1e7, dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        # the float32 square root, correctly rounded (through float64: the
+        # CPU's vectorized float32 sqrt is not, and CUDA's is)
+        mid = torch.sqrt((lo * hi).to(torch.float64)).to(torch.float32)
+        qc = quantize(perm_coefs, inv_scale[None] * (one / mid))
+        size = wenc_size_bytes(qc, segbounds, consts).sum()
+        too_big = size.to(torch.float32) > target
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    return hi
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _mark(dev: torch.device):
+    """An event after the work enqueued so far on ``dev``'s current
+    stream (None on the CPU, where the work is done when enqueued)."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def _wait(ev) -> None:
+    if ev is not None:
+        ev.synchronize()
 
 
 class _PricingConsts:
-    """A padded shape's pricing constants on one device (scan order, the
-    inverse step map in scan order, the run-length model's arrays),
-    uploaded once: an upload from pageable memory waits for the stream."""
+    """A padded shape's constants on one device (scan order, the step map
+    and its inverse, the inverse step map in scan order, the run-length
+    model's arrays), uploaded once: an upload from pageable memory waits
+    for the stream."""
 
     def __init__(self, Hp: int, Wp: int, device: torch.device):
-        order = wc.scan_order(Hp, Wp, LEVELS)
         self.segbounds = wc.subband_seg_bounds(Hp, Wp, LEVELS)
-        inv_scale = np.float32(1.0) / _subband_steps(Hp, Wp, 1.0)
-        self.order = torch.from_numpy(order).to(device)
+        scale = _subband_steps(Hp, Wp, 1.0)
+        inv_scale = np.float32(1.0) / scale
+        self.order, _ = wc.device_scan_orders(Hp, Wp, LEVELS, device)
+        order = wc.scan_order(Hp, Wp, LEVELS)
         self.inv_scale_perm = torch.from_numpy(
             np.ascontiguousarray(inv_scale.ravel()[order])).to(device)
+        self.scale = torch.from_numpy(scale).to(device)
+        self.inv_scale = torch.from_numpy(inv_scale).to(device)
         self.rle = wc.RleModelConsts(self.segbounds, device)
 
 
@@ -209,19 +422,25 @@ class J2KCodec(Codec):
                  entropy: str = "ebcot"):
         """tilex/tiley: JP2-style independent spatial tiles; rate_fit: the
         device bisection of the base step for bpp/cr keys (device backend
-        only); entropy: "ebcot" (standard codestreams). See tpukit's
-        J2KCodec.__init__ (j2k_codec.py:481-509)."""
+        only); entropy: "ebcot" (standard codestreams) or "device" (the
+        fast mode). See tpukit's J2KCodec.__init__ (j2k_codec.py:481-509)."""
         if entropy not in ("device", "ebcot"):
             raise ValueError("entropy must be 'device' or 'ebcot'")
-        if entropy == "device":
-            raise NotImplementedError(
-                f"j2k --entropy device is not ported to tpukit_torch yet "
-                f"({_NOT_PORTED})")
         self.tilex = tilex
         self.tiley = tiley
         self.rate_fit = rate_fit
         self.entropy = entropy
+        if entropy == "device":
+            self.encoder_desc = ("tpukit J2K-class (device 5/3 & 9/7 DWT + "
+                                 "Rice/bit-plane entropy backend)")
         self._consts: Dict[tuple, _PricingConsts] = {}
+
+    def _shape_consts(self, Hp: int, Wp: int,
+                      device: torch.device) -> _PricingConsts:
+        key = (Hp, Wp, str(device))
+        if key not in self._consts:
+            self._consts[key] = _PricingConsts(Hp, Wp, device)
+        return self._consts[key]
 
     def quality_for(self, rate: RateSpec) -> Optional[int]:
         """RateSpec → QUALITY 1..100 via the reference heuristics
@@ -236,31 +455,380 @@ class J2KCodec(Codec):
             return quality_from_bpp(rate.value)
         return 35  # default (j2k_wrap.py:94)
 
-    def _refuse_tiles(self, cube: np.ndarray, opts):
+    def _refuse(self, keep_bitstream: bool, opts) -> None:
+        if opts.get("mesh") is not None:
+            raise NotImplementedError(
+                f"the j2k codec's mesh sweep is not ported to tpukit_torch "
+                f"yet ({_NOT_PORTED_MESH})")
+        if keep_bitstream and self.entropy == "device":
+            raise NotImplementedError(
+                f"j2k --entropy device with --keep-bitstream is not ported "
+                f"to tpukit_torch yet ({_NOT_PORTED_KEEP})")
+
+    def _tiles(self, cube: np.ndarray, opts):
+        """(tx, ty) when independent tiles smaller than the cube are asked
+        for, else None."""
         B, H, W = cube.shape
         tx = opts.get("tilex") or self.tilex
         ty = opts.get("tiley") or self.tiley
         if (tx and tx < W) or (ty and ty < H):
-            raise NotImplementedError(
-                f"j2k independent tiles (tilex/tiley smaller than the "
-                f"{W}x{H} cube) are not ported to tpukit_torch yet "
-                f"({_NOT_PORTED})")
+            return int(tx or W), int(ty or H)
+        return None
 
     def run(self, cube: np.ndarray, dtype_name: str, rate: RateSpec,
             keep_bitstream: bool = False, **opts) -> CodecResult:
-        self._refuse_tiles(cube, opts)
-        return self._run_ebcot(cube, dtype_name, rate, keep_bitstream,
-                               cache=opts.get("device_plan_cache"),
-                               dedupe=bool(opts.get("dedupe_reps")),
-                               peak_override=opts.get("peak_override"))
+        self._refuse(keep_bitstream, opts)
+        tiles = self._tiles(cube, opts)
+        if tiles is not None:
+            return self._run_tiled(cube, dtype_name, rate, *tiles,
+                                   keep_bitstream,
+                                   **{k: v for k, v in opts.items()
+                                      if k in _TILE_OPTS})
+        if self.entropy == "ebcot":
+            return self._run_ebcot(cube, dtype_name, rate, keep_bitstream,
+                                   cache=opts.get("device_plan_cache"),
+                                   dedupe=bool(opts.get("dedupe_reps")),
+                                   peak_override=opts.get("peak_override"))
+        q_used = self.quality_for(rate)
+        B, H, W = cube.shape
+        m = 1 << LEVELS
+        Hp, Wp = H + (-H) % m, W + (-W) % m
+        if q_used is None:
+            return self._run_lossless_device(cube, Hp, Wp, **opts)
+        return self._run_lossy_device(cube, dtype_name, rate, q_used,
+                                      Hp, Wp, **opts)
+
+    def _run_tiled(self, cube: np.ndarray, dtype_name: str, rate: RateSpec,
+                   tx: int, ty: int, keep_bitstream: bool,
+                   **opts) -> CodecResult:
+        """Independent-tile coding (TILEXSIZE/TILEYSIZE, j2k_wrap.py:81;
+        port of tpukit j2k_codec.py:524-563): each spatial tile goes through
+        the whole codec on its own; streams are per (tile, band). Device
+        lossy tiles quantize with image-global steps (the peak of the whole
+        cube), the convention of :meth:`_sweep_tiled_device` too, so the
+        sequential and batched tiled sweeps give the same bytes and
+        recons. A tile's device work is a slice of the sweep's upload; the
+        recon is assembled where the tiles' recons are (on the device for
+        the device backend)."""
+        B, H, W = cube.shape
+        dc = opts.pop("device_cube", None)
+        recon = None
+        streams: Dict[str, bytes] = {}
+        sum_bytes = 0
+        t_comp = t_dec = 0.0
+        q_used = None
+        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        for y0 in range(0, H, ty):
+            for x0 in range(0, W, tx):
+                th, tw = min(ty, H - y0), min(tx, W - x0)
+                sub = np.ascontiguousarray(cube[:, y0:y0 + th, x0:x0 + tw])
+                if dc is not None:
+                    opts["device_cube"] = dc[:, y0:y0 + th, x0:x0 + tw]
+                res = self.run(sub, dtype_name, rate,
+                               keep_bitstream=keep_bitstream,
+                               **{**opts, "tilex": None, "tiley": None,
+                                  "peak_override": peak})
+                if recon is None:
+                    recon = (torch.empty(cube.shape, dtype=res.recon.dtype,
+                                         device=res.recon.device)
+                             if isinstance(res.recon, torch.Tensor)
+                             else np.empty_like(cube))
+                recon[:, y0:y0 + th, x0:x0 + tw] = res.recon
+                sum_bytes += res.bitstream_bytes
+                t_comp += res.t_comp_s
+                t_dec += res.t_dec_s
+                q_used = res.extras.get("quality_used")
+                if keep_bitstream and res.bitstreams:
+                    for name, data in res.bitstreams.items():
+                        streams[f"t_x{x0:05d}_y{y0:05d}_{name}"] = data
+        return CodecResult(
+            codec="j2k_gdal", encoder=self.encoder_desc,
+            bitstream_bytes=sum_bytes, recon=recon,
+            t_comp_s=t_comp, t_dec_s=t_dec,
+            bitstreams=streams if keep_bitstream else None,
+            extras={"quality_used": q_used,
+                    "tilex": int(tx), "tiley": int(ty)})
 
     def sweep_rates(self, cube: np.ndarray, dtype_name: str, specs,
                     keep_bitstream: bool = False, **opts) -> list:
-        """Amortized rate ladder: one tier-1 analysis feeds every lossy
-        point; lossless points go through _run_ebcot."""
-        self._refuse_tiles(cube, opts)
-        return self._sweep_ebcot(cube, dtype_name, specs, keep_bitstream,
-                                 **opts)
+        """Amortized rate ladder (port of tpukit j2k_codec.py:565-625).
+        Tiles: device-mode quality points go through the batched
+        :meth:`_sweep_tiled_device`, everything else tile by tile through
+        :meth:`run`. Whole cubes: ``ebcot`` ladders through
+        :meth:`_sweep_ebcot`; device-mode quality points (and bpp/cr points
+        without ``rate_fit``, mapped to a quality) share one DWT in
+        :meth:`sweep_qualities`, and the rest go through :meth:`run`."""
+        self._refuse(keep_bitstream, opts)
+        specs = list(specs)
+        tiles = self._tiles(cube, opts)
+        if tiles is not None:
+            pp = {k: opts[k] for k in _TILE_OPTS if k in opts}
+            q_ix = [i for i, s in enumerate(specs)
+                    if not s.lossless and s.key == "quality"]
+            out: list = [None] * len(specs)
+            if self.entropy == "device" and q_ix:
+                out = self._sweep_tiled_device(cube, specs, q_ix, *tiles,
+                                               opts.get("device_cube"))
+            return [r if r is not None else
+                    self.run(cube, dtype_name, s,
+                             keep_bitstream=keep_bitstream, **pp)
+                    for r, s in zip(out, specs)]
+        if self.entropy == "ebcot":
+            return self._sweep_ebcot(cube, dtype_name, specs, keep_bitstream,
+                                     **opts)
+        qmap = [None if (self.rate_fit and s.key in ("bpp", "cr"))
+                else self.quality_for(s) for s in specs]
+        out = [None] * len(specs)
+        lossy_ix = [i for i, q in enumerate(qmap) if q is not None]
+        if lossy_ix:
+            res = self.sweep_qualities(cube, [qmap[i] for i in lossy_ix],
+                                       cache=opts.get("device_plan_cache"),
+                                       device_cube=opts.get("device_cube"))
+            for i, r in zip(lossy_ix, res):
+                out[i] = r
+        return [r if r is not None else
+                self.run(cube, dtype_name, s, **opts)
+                for r, s in zip(out, specs)]
+
+    # -- device entropy backend (fast mode) ---------------------------------
+    def sweep_qualities(self, cube: np.ndarray, qualities,
+                        cache: dict | None = None,
+                        device_cube: torch.Tensor | None = None) -> list:
+        """Model-first quality ladder of the device backend (the
+        ``keep_bitstream=False`` branch of tpukit j2k_codec.py:627-763):
+        one 9/7 DWT (kernel K2 on CUDA) of the padded cube, kept in the
+        harness ``cache`` across reps, whose wall counts into every point's
+        ``t_comp_s``; the reconstructions of every point are enqueued
+        first, then the exact size ladder, whose read-back waits for both.
+        Per point: ``t_comp_s`` = DWT + an equal share of the sizes' wall,
+        ``t_dec_s`` = an equal share of the residual wait for the recons.
+        ``CodecResult.recon`` is a tensor on the device of
+        ``device_cube``."""
+        B, H, W = cube.shape
+        m = 1 << LEVELS
+        Hp, Wp = H + (-H) % m, W + (-W) % m
+        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        info = np.iinfo(cube.dtype)
+        opts = {"device_cube": device_cube}
+        dev = work_device(opts)
+        c = self._shape_consts(Hp, Wp, dev)
+        qualities = [int(q) for q in qualities]
+        bases = np.array([base_step_for_quality(q, peak)
+                          for q in qualities], np.float32)
+        inv_bases = np.float32(1.0) / bases
+
+        ckey = ("j2k_dwt", B, Hp, Wp, cube.dtype.name)
+        if cache is not None and ckey in cache:
+            coefs, t_dwt = cache[ckey]
+        else:
+            t0 = time.perf_counter()
+            coefs = dwt97(device_work(cube, opts, m, torch.float32), LEVELS)
+            _wait(_mark(dev))
+            t_dwt = time.perf_counter() - t0
+            if cache is not None:
+                cache[ckey] = (coefs, t_dwt)
+        # the recon ladder goes first: the device works on it while the
+        # host enqueues the sizes
+        recons, _, _ = requant_recon_ladder(
+            coefs, c.inv_scale, c.scale, inv_bases, bases, LEVELS, H, W,
+            int(info.min), int(info.max), _torch_dtype(cube.dtype))
+        t0 = time.perf_counter()
+        with mem_phase("comp"):
+            sizes = ladder_sizes(coefs, c.order, c.inv_scale_perm, inv_bases,
+                                 c.segbounds, c.rle).cpu().numpy()
+        t_sizes = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            _wait(_mark(dev))
+        t_rec = time.perf_counter() - t0
+        Q = max(len(qualities), 1)
+        return [CodecResult(
+            codec="j2k_gdal", encoder=self.encoder_desc,
+            bitstream_bytes=int(sizes[i].sum()), recon=recons[i],
+            t_comp_s=t_dwt + t_sizes / Q, t_dec_s=t_rec / Q,
+            bitstreams=None, extras={"quality_used": q})
+            for i, q in enumerate(qualities)]
+
+    def _run_lossy_device(self, cube, dtype_name, rate, q_used, Hp, Wp,
+                          **opts):
+        """One lossy point with no bulk transfer (port of tpukit
+        j2k_codec.py:1535-1607): the 9/7 DWT (K2), the scan-order gather,
+        with ``rate_fit`` and a bpp/cr key the base step fitted on the
+        device (:func:`fit_base`), the exact sizes, and the requantized
+        reconstruction. Only the byte counts (and the fitted base) come to
+        the host."""
+        B, H, W = cube.shape
+        info = np.iinfo(cube.dtype)
+        peak = float(opts.get("peak_override") or 0.0) \
+            or float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        fit_mode = self.rate_fit and rate.key in ("bpp", "cr")
+        dev = work_device(opts)
+        c = self._shape_consts(Hp, Wp, dev)
+
+        t0 = time.perf_counter()
+        with mem_phase("comp"):
+            coefs = dwt97(device_work(cube, opts, 1 << LEVELS,
+                                      torch.float32), LEVELS)
+            # one scan-order gather serves the fit and the sizes
+            perm = _perm(coefs, c.order)
+            target = None
+            if fit_mode:
+                if rate.key == "bpp":
+                    target = rate.value * H * W * B / 8.0
+                else:
+                    target = (W * H * B * 2.0) / max(rate.value, 1e-6)
+                base = float(fit_base(perm, c.scale.reshape(-1)[c.order],
+                                      target, segbounds=c.segbounds,
+                                      consts=c.rle))
+                q_used = None
+            else:
+                base = base_step_for_quality(q_used, peak)
+            inv_base = np.float32(1.0) / np.float32(base)
+            sum_bytes = int(ladder_sizes(coefs, c.order, c.inv_scale_perm,
+                                         [inv_base], c.segbounds,
+                                         c.rle).sum())
+        t_comp = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            recons, _, _ = requant_recon_ladder(
+                coefs, c.inv_scale, c.scale, [inv_base], [np.float32(base)],
+                LEVELS, H, W, int(info.min), int(info.max),
+                _torch_dtype(cube.dtype))
+            recon = recons[0]
+            _wait(_mark(dev))
+        t_dec = time.perf_counter() - t0
+
+        extras = {"quality_used": (int(q_used) if q_used is not None
+                                   else None)}
+        if fit_mode:
+            extras.update(rate_fit=1, base_step=float(base),
+                          target_bytes=int(target))
+        return CodecResult(
+            codec="j2k_gdal", encoder=self.encoder_desc,
+            bitstream_bytes=sum_bytes, recon=recon,
+            t_comp_s=t_comp, t_dec_s=t_dec, bitstreams=None,
+            extras=extras)
+
+    def _run_lossless_device(self, cube, Hp, Wp, **opts):
+        """Reversible point with no bulk transfer (port of tpukit
+        j2k_codec.py:1609-1646): the common trailing zero bits are shifted
+        out, the integer 5/3 DWT runs on the device, the exact sizes of the
+        full streams are summed (+1 byte per band, the stream's shift
+        prefix), and the reconstruction is the inverse transform, which
+        restores the input exactly."""
+        H0, W0 = cube.shape[-2:]
+        B = cube.shape[0]
+        dev = work_device(opts)
+        c = self._shape_consts(Hp, Wp, dev)
+        t0 = time.perf_counter()
+        with mem_phase("comp"):
+            shift = trailing_zero_shift(cube)
+            wi = device_work(cube, opts, 1 << LEVELS, torch.int32)
+            if shift:
+                wi = wi >> shift        # exact: the dropped LSBs are zero
+            coefs = dwt2(wi, "53", LEVELS)
+            sum_bytes = int(lossless_sizes(coefs, c.order, c.segbounds,
+                                           c.rle).sum()) + B
+        t_comp = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            rec = idwt2(coefs, "53", LEVELS)[:, :H0, :W0]
+            if shift:
+                rec = rec << shift
+            recon = rec.to(_torch_dtype(cube.dtype))
+            _wait(_mark(dev))
+        t_dec = time.perf_counter() - t0
+        return CodecResult(
+            codec="j2k_gdal", encoder=self.encoder_desc,
+            bitstream_bytes=sum_bytes, recon=recon,
+            t_comp_s=t_comp, t_dec_s=t_dec, bitstreams=None,
+            extras={"quality_used": None, "lsb_shift": shift})
+
+    def _sweep_tiled_device(self, cube: np.ndarray, specs, q_ix, tx: int,
+                            ty: int, device_cube: torch.Tensor | None = None
+                            ) -> list:
+        """Batched tiled device sweep of the QUALITY specs ``q_ix`` (port of
+        tpukit j2k_codec.py:1381-1475): tiles grouped by shape, at most
+        ``_TILE_BATCH`` to a batch, each batch stacked along the band axis
+        as one (n_tiles·B, th, tw) cube with one DWT (K2), one size ladder
+        (tile by tile) and one recon ladder. Quantizer steps are
+        image-global, as in :meth:`_run_tiled`, so the result equals the
+        sequential tiled run. The tiles are cut from ``device_cube`` on its
+        device (from the host cube on the CPU without one), and the recons
+        are assembled there. ``t_comp_s`` is the wall up to the last
+        batch's sizes, ``t_dec_s`` that of reading the sizes and
+        assembling the recons, each shared equally by the points. Returns
+        a list aligned with ``specs``; other entries are None."""
+        B, H, W = cube.shape
+        info = np.iinfo(cube.dtype)
+        m = 1 << LEVELS
+        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        qualities = [self.quality_for(specs[i]) for i in q_ix]
+        bases = np.array([base_step_for_quality(q, peak)
+                          for q in qualities], np.float32)
+        inv_bases = np.float32(1.0) / bases
+        Q = len(q_ix)
+        src = (device_cube if device_cube is not None
+               else torch.from_numpy(np.ascontiguousarray(cube)))
+        dev = src.device
+
+        groups: Dict[tuple, list] = {}
+        for y0 in range(0, H, ty):
+            for x0 in range(0, W, tx):
+                th, tw = min(ty, H - y0), min(tx, W - x0)
+                groups.setdefault((th, tw), []).append((y0, x0))
+        batches = [(shape, tiles[c0:c0 + _TILE_BATCH])
+                   for shape, tiles in groups.items()
+                   for c0 in range(0, len(tiles), _TILE_BATCH)]
+
+        recons = torch.empty((Q, B, H, W), dtype=_torch_dtype(cube.dtype),
+                             device=dev)
+        bytes_q = np.zeros(Q, np.int64)
+        t0 = time.perf_counter()
+        pend = []
+        sized = None
+        with mem_phase("comp"):
+            for (th, tw), tiles in batches:
+                Hp, Wp = th + (-th) % m, tw + (-tw) % m
+                c = self._shape_consts(Hp, Wp, dev)
+                work = torch.stack([src[:, y0:y0 + th, x0:x0 + tw]
+                                    .to(torch.float32) for y0, x0 in tiles])
+                coefs = dwt97(edge_pad(work.reshape(len(tiles) * B, th, tw),
+                                       Hp, Wp), LEVELS)
+                sizes = tiled_ladder_sizes(
+                    coefs.reshape(len(tiles), B, Hp, Wp), c.order,
+                    c.inv_scale_perm, inv_bases, c.segbounds, c.rle)
+                sized = _mark(dev)
+                recs, _, _ = requant_recon_ladder(
+                    coefs, c.inv_scale, c.scale, inv_bases, bases, LEVELS,
+                    th, tw, int(info.min), int(info.max), recons.dtype)
+                pend.append(((th, tw), tiles, sizes, recs))
+            # bill the encode-side device work (DWT and size ladders) to
+            # t_comp, as tpukit does (:1449-1453)
+            _wait(sized)
+        t_comp = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            for (th, tw), tiles, sizes, recs in pend:
+                bytes_q += sizes.cpu().numpy().sum(axis=(0, 2))
+                rh = recs.reshape(Q, len(tiles), B, th, tw)
+                for n, (y0, x0) in enumerate(tiles):
+                    recons[:, :, y0:y0 + th, x0:x0 + tw] = rh[:, n]
+            _wait(_mark(dev))
+        t_dec = time.perf_counter() - t0
+
+        out: list = [None] * len(specs)
+        for qi, i in enumerate(q_ix):
+            out[i] = CodecResult(
+                codec="j2k_gdal", encoder=self.encoder_desc,
+                bitstream_bytes=int(bytes_q[qi]), recon=recons[qi],
+                t_comp_s=t_comp / Q, t_dec_s=t_dec / Q, bitstreams=None,
+                extras={"quality_used": int(qualities[qi]),
+                        "tilex": int(tx), "tiley": int(ty)})
+        return out
 
     # -- standard-conformant EBCOT backend ----------------------------------
     def _ebcot_target(self, rate: RateSpec, B: int, H: int, W: int) -> int:
@@ -294,20 +862,12 @@ class J2KCodec(Codec):
         Hp, Wp = H + (-H) % m, W + (-W) % m
         if device_cube is None:
             device_cube = torch.from_numpy(np.ascontiguousarray(cube))
-        dev = device_cube.device
-        key = (Hp, Wp, str(dev))
-        if key not in self._consts:
-            self._consts[key] = _PricingConsts(Hp, Wp, dev)
-        c = self._consts[key]
+        c = self._shape_consts(Hp, Wp, device_cube.device)
         inv_bases = np.float32(1.0) / self._quality_bases(
             cube, qual_specs.values())
 
-        x = device_cube.to(torch.float32)
-        if Hp > H:      # edge padding, as np.pad(mode="edge")
-            x = torch.cat([x, x[:, -1:, :].expand(B, Hp - H, W)], 1)
-        if Wp > W:
-            x = torch.cat([x, x[:, :, -1:].expand(B, Hp, Wp - W)], 2)
-        coefs = dwt97(x.contiguous(), LEVELS)
+        coefs = dwt97(edge_pad(device_cube.to(torch.float32), Hp, Wp),
+                      LEVELS)
         sizes = ladder_sizes_light(coefs, c.order, c.inv_scale_perm,
                                    inv_bases, c.segbounds, c.rle)
         done = None

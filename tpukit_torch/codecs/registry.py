@@ -2,7 +2,7 @@
 """Codec registry: name -> constructor, with the reference-label aliases of
 tpukit/codecs/registry.py:10-17 so CSV codec ids map onto codecs.
 
-The port has CCSDS-121 and J2K (its ``ebcot`` backend) so far. The other
+The port has CCSDS-121 and J2K (both entropy backends) so far. The other
 tpukit codecs raise ``NotImplementedError`` naming the ROADMAP.md item that
 ports them."""
 

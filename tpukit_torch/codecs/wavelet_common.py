@@ -3,10 +3,12 @@
 subband segment layout and the run-length backend's size model.
 
 Re-homed from tpukit/codecs/wavelet_common.py, which imports JAX at :13:
-``scan_order`` (:20-35), the Rice backend constants (:178-193),
+``scan_order``, ``inverse_scan_order`` and ``pad_to_multiple`` (:20-43,
+:64-71), the Rice backend constants (:178-193),
 ``RLE_CAP_BITS``/``_rle_cap_bits`` (:226-232), ``subband_seg_bounds``
 (:235-253) and ``_rle_model_consts`` (:320-331), verbatim in numpy; and
-``rle_size_bytes_model`` (:334-419) ported to torch.
+``rle_size_bytes_model`` (:334-419) ported to torch; and
+``device_scan_orders`` (:46-61), cached per device.
 """
 
 from __future__ import annotations
@@ -35,6 +37,34 @@ def scan_order(H: int, W: int, levels: int) -> np.ndarray:
     order = np.concatenate(parts)
     assert order.size == H * W
     return order
+
+
+@lru_cache(maxsize=32)
+def inverse_scan_order(H: int, W: int, levels: int) -> np.ndarray:
+    order = scan_order(H, W, levels)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    return inv
+
+
+@lru_cache(maxsize=32)
+def device_scan_orders(H: int, W: int, levels: int, device: torch.device):
+    """(order, inverse) scan permutations as int64 tensors on ``device``,
+    uploaded once per padded shape and device."""
+    return (torch.from_numpy(scan_order(H, W, levels)).to(device),
+            torch.from_numpy(inverse_scan_order(H, W, levels)).to(device))
+
+
+def pad_to_multiple(img: np.ndarray, m: int):
+    """Edge-pad the last two axes up to multiples of ``m``; returns
+    (padded, H, W) with the original H and W."""
+    H, W = img.shape[-2:]
+    ph = (-H) % m
+    pw = (-W) % m
+    if ph == 0 and pw == 0:
+        return img, H, W
+    pads = [(0, 0)] * (img.ndim - 2) + [(0, ph), (0, pw)]
+    return np.pad(img, pads, mode="edge"), H, W
 
 
 RICE_MARK = 0x80

@@ -47,7 +47,8 @@ def _jax_refused():
 
 
 with _jax_refused():
-    from tpukit.codecs.base import Codec, CodecResult, RateSpec
+    from tpukit.codecs.base import (Codec, CodecResult, RateSpec,
+                                    trailing_zero_shift)
     from tpukit.io import manifest, raw, tiff
     from tpukit.io.bitdepth import effective_data_range
     from tpukit.io.j2c_enc import J2CPlan, at_size_multi
@@ -58,7 +59,8 @@ with _jax_refused():
     from tpukit.sweep.proc import MemorySampler, mem_phase
     from tpukit.viz import quicklooks
 
-__all__ = ["Codec", "CodecResult", "RateSpec", "manifest", "raw", "tiff",
+__all__ = ["Codec", "CodecResult", "RateSpec", "trailing_zero_shift",
+           "manifest", "raw", "tiff",
            "effective_data_range", "J2CPlan", "at_size_multi", "JP2Decoder",
            "native", "ccsds121_host", "csvio",
            "MemorySampler", "mem_phase", "quicklooks"]

@@ -1,9 +1,10 @@
 # -*- coding: utf-8 -*-
-"""2-D multilevel CDF 9/7 DWT (lifting) on torch tensors: the plain version.
+"""2-D multilevel DWTs (lifting) on torch tensors: the plain versions.
 
-Port of the irreversible 9/7 path of tpukit/kernels/dwt.py (``_fwd97_1d``,
+Port of the irreversible CDF 9/7 and the reversible integer 5/3 paths of
+tpukit/kernels/dwt.py (``_fwd53_1d``, ``_inv53_1d``, ``_fwd97_1d``,
 ``_inv97_1d``, ``_dwt2_once``, ``_idwt2_once``, ``dwt2``, ``idwt2``,
-``subband_slices``; :96-112, :176-229, :256-269): split domain,
+``subband_slices``; :72-112, :176-229, :256-269): split domain,
 whole-point symmetric extension (s[n] := s[n-1], d[-1] := d[0]), the last
 axis first and then the rows of each half, and the packed Mallat layout
 [LL | HL; LH | HH] per level, in place of the level's window.
@@ -19,7 +20,9 @@ XLA:CPU contracts ``d + A*(s + s_r)`` into an FMA, rewrites ``x / K`` as
 ``x * (1/K)`` and fuses the scaling across the two passes of a level. The
 two agree to f32 round-off (tests/test_torch_dwt.py).
 
-The 5/3 and 9/7M transforms are not ported yet (ROADMAP.md items 14-15).
+The 5/3 transform is int32 throughout (arithmetic shifts, as in JAX), so
+it equals tpukit's bit for bit and its inverse restores the input exactly.
+The integer 9/7M transform is not ported yet (ROADMAP.md item 15).
 """
 
 from __future__ import annotations
@@ -60,6 +63,25 @@ def _split(x: torch.Tensor, axis: int):
     return even, x[tuple(idx)]
 
 
+def _fwd53_1d(x: torch.Tensor, axis: int):
+    s, d = _split(x, axis)
+    d = d - ((s + _next(s, axis)) >> 1)                  # predict
+    s = s + ((_prev(d, axis) + d + 2) >> 2)              # update
+    return s, d
+
+
+def _inv53_1d(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
+    s = s - ((_prev(d, axis) + d + 2) >> 2)
+    d = d + ((s + _next(s, axis)) >> 1)
+    return _interleave(s, d, axis)
+
+
+def _interleave(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
+    """s0 d0 s1 d1 ... along ``axis``."""
+    ax = axis % s.dim()
+    return torch.stack([s, d], ax + 1).flatten(ax, ax + 1)
+
+
 def _fwd97_1d(x: torch.Tensor, axis: int):
     s, d = _split(x, axis)
     d = d + A97 * (s + _next(s, axis))
@@ -76,29 +98,35 @@ def _inv97_1d(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
     d = d - G97 * (s + _next(s, axis))
     s = s - B97 * (_prev(d, axis) + d)
     d = d - A97 * (s + _next(s, axis))
-    ax = axis % s.dim()
-    return torch.stack([s, d], ax + 1).flatten(ax, ax + 1)   # s0 d0 s1 d1 ...
+    return _interleave(s, d, axis)
 
 
-def _dwt2_once(x: torch.Tensor) -> torch.Tensor:
-    sL, sH = _fwd97_1d(x, -1)
-    LL, LH = _fwd97_1d(sL, -2)
-    HL, HH = _fwd97_1d(sH, -2)
+_FWD = {"53": _fwd53_1d, "97": _fwd97_1d}
+_INV = {"53": _inv53_1d, "97": _inv97_1d}
+_DTYPE = {"53": torch.int32, "97": torch.float32}
+
+
+def _dwt2_once(x: torch.Tensor, kind: str) -> torch.Tensor:
+    f = _FWD[kind]
+    sL, sH = f(x, -1)
+    LL, LH = f(sL, -2)
+    HL, HH = f(sH, -2)
     return torch.cat([torch.cat([LL, HL], -1), torch.cat([LH, HH], -1)], -2)
 
 
-def _idwt2_once(c: torch.Tensor) -> torch.Tensor:
+def _idwt2_once(c: torch.Tensor, kind: str) -> torch.Tensor:
+    inv = _INV[kind]
     H2, W2 = c.shape[-2] // 2, c.shape[-1] // 2
-    sL = _inv97_1d(c[..., :H2, :W2], c[..., H2:, :W2], -2)
-    sH = _inv97_1d(c[..., :H2, W2:], c[..., H2:, W2:], -2)
-    return _inv97_1d(sL, sH, -1)
+    sL = inv(c[..., :H2, :W2], c[..., H2:, :W2], -2)
+    sH = inv(c[..., :H2, W2:], c[..., H2:, W2:], -2)
+    return inv(sL, sH, -1)
 
 
 def _check(kind: str, H: int, W: int, levels: int):
-    if kind != "97":
+    if kind not in _FWD:
         raise NotImplementedError(
             f"dwt kind {kind!r} is not ported to tpukit_torch yet (ROADMAP.md "
-            f"'Modules to port', items 14-15); only '97' is")
+            f"'Modules to port', item 15); only '53' and '97' are")
     if H % (1 << levels) or W % (1 << levels):
         raise ValueError(f"H and W must be divisible by 2^levels (got "
                          f"{H}x{W} at levels={levels})")
@@ -106,13 +134,13 @@ def _check(kind: str, H: int, W: int, levels: int):
 
 def dwt2(x: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
     """Multilevel forward 2-D DWT of (..., H, W), packed in place (Mallat
-    layout), as float32 on x's device."""
+    layout), on x's device: float32 for "97", int32 for "53"."""
     H, W = x.shape[-2], x.shape[-1]
     _check(kind, H, W, levels)
-    out = x.to(torch.float32, copy=True)
+    out = x.to(_DTYPE[kind], copy=True)
     for lv in range(levels):
         h, w = H >> lv, W >> lv
-        out[..., :h, :w] = _dwt2_once(out[..., :h, :w])
+        out[..., :h, :w] = _dwt2_once(out[..., :h, :w], kind)
     return out
 
 
@@ -120,10 +148,10 @@ def idwt2(c: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
     """Inverse of :func:`dwt2`."""
     H, W = c.shape[-2], c.shape[-1]
     _check(kind, H, W, levels)
-    out = c.to(torch.float32, copy=True)
+    out = c.to(_DTYPE[kind], copy=True)
     for lv in range(levels - 1, -1, -1):
         h, w = H >> lv, W >> lv
-        out[..., :h, :w] = _idwt2_once(out[..., :h, :w])
+        out[..., :h, :w] = _idwt2_once(out[..., :h, :w], kind)
     return out
 
 

@@ -7,7 +7,10 @@ Port of the single-device path of tpukit/sweep/runner.py:686-1128:
     that upload (``device_cube``) for its device work (the CCSDS-121 encode
     plan, the J2K byte-target pricing);
   * every (rate, rep) job runs its own metric lane (honest reps); lanes of
-    identical content share one upload;
+    identical content share one upload; a codec's recon may already lie
+    on the device (the J2K device backend), and then its lane is stacked
+    there without a round trip, and copied to the host only when
+    artifacts need it;
   * the device pass (``_device_pass_dispatch``) launches the quality,
     spectral and ERR8 quicklook ladders and starts their device-to-host
     copies into pinned host buffers; ``_device_pass_finalize`` waits for
@@ -182,7 +185,7 @@ class _Job:
     meta: Dict[str, object] = field(default_factory=dict)
     t_wrap: float = 0.0
     bs_bytes: Optional[int] = None
-    recon: Optional[np.ndarray] = None
+    recon: object = None        # np.ndarray (host) or torch.Tensor
     bitstreams: Optional[Dict[str, bytes]] = None
     met_index: int = -1         # lane in the tile's metric stack
     art_index: int = -1         # artifact-content group (hardlink sharing)
@@ -223,6 +226,16 @@ def ql_ladder(ref: torch.Tensor, recons: torch.Tensor,
     return torch.stack(out)
 
 
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) \
+        else x.nbytes
+
+
+def _is_float(x) -> bool:
+    return (x.dtype.is_floating_point if isinstance(x, torch.Tensor)
+            else np.issubdtype(x.dtype, np.floating))
+
+
 def _start_copy(x: torch.Tensor) -> torch.Tensor:
     """Device-to-host copy into a pinned buffer, started without waiting
     (CPU tensors are returned as they are)."""
@@ -235,14 +248,18 @@ def _start_copy(x: torch.Tensor) -> torch.Tensor:
 
 def _device_pass_dispatch(device, ref_dev, vm_dev, sam_vm_dev, lanes, chunk,
                           nod_val, has_nodata, is_caseb, src_valid=None,
-                          ql_caps=(), ref_host=None, lane_groups=None):
+                          ql_caps=(), ref_host=None, lane_groups=None,
+                          want_recon=False):
     """Launch the metric ladders (+ ERR8 maps when artifacts are requested)
     for every chunk of lanes and START their device-to-host copies; nothing
-    waits on the device here. ``lane_groups`` (parallel to ``lanes``):
-    lanes sharing a group id carry byte-identical content, so each group is
-    uploaded once; the metric ladders still run once per lane."""
-    want_ql = (bool(ql_caps) and bool(lanes)
-               and not np.issubdtype(lanes[0].dtype, np.floating))
+    waits on the device here. A lane is a host array (uploaded) or a tensor
+    (stacked where it is, moved to ``device`` if it lies elsewhere).
+    ``lane_groups`` (parallel to ``lanes``): lanes sharing a group id carry
+    byte-identical content, so each group is uploaded once; the metric
+    ladders still run once per lane. ``want_recon``: also copy the tensor
+    lanes to the host (the artifacts need them), host lanes stay as they
+    are (tpukit runner.py:379-385)."""
+    want_ql = (bool(ql_caps) and bool(lanes) and not _is_float(lanes[0]))
     if want_ql:
         lut_dev = torch.from_numpy(
             np.stack([ql.err8_lut(c) for c in ql_caps])).to(device)
@@ -250,7 +267,9 @@ def _device_pass_dispatch(device, ref_dev, vm_dev, sam_vm_dev, lanes, chunk,
 
     group_buf: Dict[int, torch.Tensor] = {}
 
-    def upload(x: np.ndarray) -> torch.Tensor:
+    def upload(x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
         # a recon bit-identical to the reference (lossless codecs) reuses
         # the uploaded ref instead of shipping the same bytes again
         if (ref_host is not None and x.shape == ref_host.shape
@@ -276,6 +295,9 @@ def _device_pass_dispatch(device, ref_dev, vm_dev, sam_vm_dev, lanes, chunk,
         if want_ql:
             payload["ql"] = ql_ladder(ref_dev, stack, sv_dev, nod_val,
                                       lut_dev, has_nodata)
+        if want_recon:
+            payload["recon"] = {i: x for i, x in enumerate(batch)
+                                if isinstance(x, torch.Tensor)}
         ss_err = None
         if is_caseb:
             # warn-and-continue on SAM/SID/LMSE failure (reference
@@ -299,10 +321,12 @@ def _device_pass_dispatch(device, ref_dev, vm_dev, sam_vm_dev, lanes, chunk,
 
 def _device_pass_finalize(chunks, data_range, is_caseb):
     """Wait for the copies started by :func:`_device_pass_dispatch` and
-    assemble (met_rows, lane_e8): per-lane metric dicts and per-lane
-    (C, H, W) uint8 ERR8 maps (None when not requested)."""
+    assemble (met_rows, lane_e8, lane_recon): per-lane metric dicts,
+    per-lane (C, H, W) uint8 ERR8 maps and per-lane host copies of tensor
+    lanes (None where not requested or not a tensor)."""
     met_rows: List[Dict[str, float]] = []
     lane_e8: List[Optional[np.ndarray]] = []
+    lane_recon: List[Optional[np.ndarray]] = []
     for ch in chunks:
         if ch["done"] is not None:
             ch["done"].synchronize()
@@ -325,7 +349,10 @@ def _device_pass_finalize(chunks, data_range, is_caseb):
         e8 = host["ql"].numpy() if "ql" in host else None
         lane_e8.extend(e8[i] if e8 is not None else None
                        for i in range(len(batch)))
-    return met_rows, lane_e8
+        recon = host.get("recon", {})
+        lane_recon.extend(recon[i].numpy() if i in recon else None
+                          for i in range(len(batch)))
+    return met_rows, lane_e8, lane_recon
 
 
 def _link_tree(src: Path, dst: Path):
@@ -403,7 +430,7 @@ def _write_artifacts_phase(cfg: SweepConfig, jobs: Dict[tuple, _Job],
         by_lane.setdefault(job.art_index, []).append(job)
 
     def render(job: _Job):
-        recon_host = np.asarray(lanes[job.met_index])
+        recon_host = lanes[job.met_index]
         e8 = lane_e8[job.met_index] if lane_e8 is not None else None
         rec_ok = (np.all(recon_host != nodata, axis=0) if has_nodata
                   else np.ones((H, W), bool))
@@ -610,7 +637,7 @@ def run_sweep(cfg: SweepConfig) -> Dict[str, object]:
                         if res.mem_dec_peak_bytes is None:
                             res.mem_dec_peak_bytes = ms.phase_peak_bytes("dec")
                         job = jobs[(ri, rep)]
-                        job.recon = np.asarray(res.recon)
+                        job.recon = res.recon
                         job.meta = res.to_meta()
                         job.t_wrap = res.t_comp_s + res.t_dec_s
                         job.bs_bytes = res.bitstream_bytes
@@ -622,7 +649,7 @@ def run_sweep(cfg: SweepConfig) -> Dict[str, object]:
             # groups stay per rate (identical bytes, hardlinked replicas)
             lane_of: Dict[tuple, int] = {}
             art_of: Dict[tuple, int] = {}
-            lanes: List[np.ndarray] = []
+            lanes: List[object] = []
             lane_groups: List[int] = []   # content group per lane
             for (ri, rep), job in sorted(jobs.items()):
                 content_key = (("reused", id(job.recon)) if job.reused
@@ -653,7 +680,7 @@ def run_sweep(cfg: SweepConfig) -> Dict[str, object]:
                 device, ref_dev, vm_dev, sam_vm_dev, lanes,
                 _metric_chunk(B, H, W), nod_val, has_nodata, is_caseb,
                 src_valid=src_valid, ql_caps=tuple(ql_caps), ref_host=cube,
-                lane_groups=share_groups)
+                lane_groups=share_groups, want_recon=cfg.write_artifacts)
             dispatch_s = time.perf_counter() - t2
 
             # ---- phases 3-4 as this tile's deferred finish --------------
@@ -667,12 +694,14 @@ def run_sweep(cfg: SweepConfig) -> Dict[str, object]:
                        raw16_bytes=raw16_bytes, t1=t1, t2=t2,
                        dispatch_s=dispatch_s) -> List[dict]:
                 t_wait = time.perf_counter()
-                met_rows, lane_e8 = _device_pass_finalize(
+                met_rows, lane_e8, lane_recon = _device_pass_finalize(
                     chunks_state, data_range, is_caseb)
                 t3 = time.perf_counter()
                 if cfg.write_artifacts:
+                    host_lanes = [h if h is not None else x
+                                  for h, x in zip(lane_recon, lanes)]
                     _write_artifacts_phase(
-                        cfg, jobs, lanes, lane_e8, ql_caps, cube=cube,
+                        cfg, jobs, host_lanes, lane_e8, ql_caps, cube=cube,
                         geo=geo, nodata=nodata, has_nodata=has_nodata,
                         src_mask=src_mask, src_valid=src_valid,
                         rgb_order=rgb_order, descriptions=descriptions,
@@ -706,7 +735,7 @@ def run_sweep(cfg: SweepConfig) -> Dict[str, object]:
             # the PREVIOUS tile finishes now — its copies streamed behind
             # this tile's codec phase
             flush_pending()
-            if sum(x.nbytes for x in lanes) <= (1 << 30):
+            if sum(_nbytes(x) for x in lanes) <= (1 << 30):
                 pending.append(finish)
             else:                      # oversized ladder: finish inline
                 rows.extend(finish())
