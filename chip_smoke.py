@@ -10,15 +10,22 @@ the port's main path, bench.py's canonical pair, through its own CLI:
   0. the card: CUDA must be present; prints its name and power limit;
   1. build: compiles kernels K1 (tpukit_torch/csrc/fs_table.cu) and K2
      (tpukit_torch/csrc/dwt97.cu) with nvcc, one process per source, and
-     tpukit's host C++ runtime (the CCSDS-121 coder, the J2K tier-1
-     analysis and decoder) with g++ when the checkout has no build of it,
-     so that no build lands in a timed rep;
-  2. K1 against its plain torch version on the card, exact, at the plan's
-     shapes, an odd block count, J=16, a misaligned input and saturating
-     input; K2 against its plain version, bit-equal, at Case A's
-     (4, 1024, 1024) with 5 levels, (2, 256, 256) with 3, a non-square
-     (3, 96, 160) with 5 and one (1, 4096, 4096) plane with 5; all timed
-     with CUDA events;
+     the port's host C++ runtime (the CCSDS-121 coder, the J2K tier-1
+     analysis and decoder) with g++ from its sources in
+     tpukit_torch/native/src, so that no build lands in a timed rep;
+  2. K1 against its plain torch version on the card, exact, at the main
+     paths' shapes (Case B's plan chunk and remainder, the device mode's
+     (65536, 64) and (131072, 32)), an odd block count, J = 1, 2, 4, 5
+     and 16, values up to 2^31 - 1, a misaligned input and saturating
+     input; K2 against its plain version, bit-equal and with its input
+     untouched, at Case A's (4, 1024, 1024), the scene row's four batch
+     shapes, one level, (2, 256, 256) with 3 levels, a non-square
+     (3, 96, 160), the tile kernel alone down to windows of 3 x 5 and on
+     windows smaller than one tile, and one (1, 4096, 4096) plane; then
+     both timed at every main-path shape beside their bounds (CUDA
+     graphs, the L2 flushed before each launch, in turns: plain, kernel,
+     kernel, plain; also the kernel's time with a warm L2 and its eager
+     time, the method of earlier runs);
   3. the Case B slice: ``run-codec --codec ccsds121 --rate-key none --reps 3
      --preproc none --nbit 16 --interleave bip --tile 512`` (bench.py's
      Case B command, plus --keep-bitstream to compare the stream) on
@@ -38,12 +45,11 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      the CPU exactly, that every point's streams fit its target, and that
      rep 1's recon.tif equals the JPEG 2000 decoder's output of its kept
      .j2c streams;
-  6. the J2K device fast mode (``--entropy device``): K1 and K2 against
-     their plain versions at the shapes this path gives them, timed; then
-     (a) bench.py's ``j2k_device_tiled1024`` scene row, ``run-codec --codec
+  6. the J2K device fast mode (``--entropy device``): (a) bench.py's ``j2k_device_tiled1024`` scene row, ``run-codec --codec
      j2k --entropy device --rate-key quality --rates 40 --reps 1 --tilex
      1024 --tiley 1024 --no-artifacts``, on bench.py's 2000×10000×4
-     12-in-16 scene: K2 launched for every tile batch and K1 for every
+     12-in-16 scene: K2 launched as kernels.dwt97.plan schedules every tile
+     batch and K1 for every
      tile and point, one CSV row with a finite PSNR, and on the scene's
      right-hand 2000×1808 crop (all four tile shapes) the codec's bytes
      and recons on the card equal to the plain CPU run's; the row is run a
@@ -59,11 +65,11 @@ the port's main path, bench.py's canonical pair, through its own CLI:
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
-last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
+nothing of tpukit: the input recipes are copies of bench.py's.
 """
 
 import csv
-import importlib.util
 import json
 import math
 import subprocess
@@ -78,17 +84,19 @@ import torch
 from tpukit_torch.cli.main import run_codec_main
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
+from tpukit_torch import native
 from tpukit_torch.codecs import j2k_codec
+from tpukit_torch.codecs.base import RateSpec
 from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
-from tpukit_torch.host import (JP2Decoder, RateSpec, ccsds121_host, manifest,
-                               native, tiff)
+from tpukit_torch.io import manifest, tiff
+from tpukit_torch.io.jp2 import JP2Decoder
 from tpukit_torch.kernels import build
-from tpukit_torch.kernels.dwt97 import dwt97, dwt97_ref
+from tpukit_torch.native import ccsds121_host
+from tpukit_torch.kernels.dwt97 import TAIL_MAX, dwt97, dwt97_ref, plan
 from tpukit_torch.kernels.fs_table import fs_table, fs_table_ref
 from tpukit_torch.sweep import runner
 
-ROOT = Path(__file__).resolve().parent
 BANDS, SIZE = 180, 512
 PLAN_CHUNK = 1 << 22
 RATES_A = [1, 2, 4, 6, 8, 10, 15, 20, 25, 30, 35, 40, 60, 100]
@@ -107,8 +115,60 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, iters: int = 50) -> float:
-    """Mean device time of fn() over iters launches (CUDA events), warm."""
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM, float32 outside the tensor cores
+
+
+_FLUSH = {}
+
+
+def l2_flush():
+    """Writes 64 MiB, more than the card's 50 MB L2, so that the next
+    launch finds its input in device memory."""
+    buf = _FLUSH.get("buf")
+    if buf is None:
+        buf = _FLUSH["buf"] = torch.empty(16 << 20, dtype=torch.float32,
+                                          device="cuda")
+    buf.zero_()
+
+
+def graph_ms(fn, iters: int, cold: bool = False) -> float:
+    """Device time of one fn() in ms: ``iters`` calls captured in a CUDA
+    graph, two replays timed with CUDA events. The graph takes the host's
+    launch cost out, which for a launch of a few microseconds exceeds the
+    kernel's own time. ``cold``: an L2 flush before every call, its own
+    time (a graph of flushes alone) subtracted."""
+    def replay_ms(body):
+        body()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                body()
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (2 * iters)
+
+    if not cold:
+        return replay_ms(fn)
+
+    def flushed():
+        l2_flush()
+        fn()
+    return replay_ms(flushed) - replay_ms(l2_flush)
+
+
+def eager_ms(fn, iters: int = 50) -> float:
+    """Mean time of fn() over ``iters`` eager calls between two CUDA
+    events, warm: the method of the earlier runs, where the host's launch
+    cost sets the pace of a launch of a few microseconds."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -121,23 +181,71 @@ def event_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(dev, card):
-    """Phase 2: K1 == plain version on the card; returns (max_abs_err, ms,
-    plain_ms) at the plan's main chunk shape."""
+def time_pair(fn_kernel, fn_plain, iters, plain_iters):
+    """(kernel ms, plain ms), each the mean of two timings with a cold L2
+    taken in turns: plain, kernel, kernel, plain."""
+    p1 = graph_ms(fn_plain, plain_iters, cold=True)
+    k1 = graph_ms(fn_kernel, iters, cold=True)
+    k2 = graph_ms(fn_kernel, iters, cold=True)
+    p2 = graph_ms(fn_plain, plain_iters, cold=True)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: float, ops: float):
+    """(bound ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_row(shape, fn_kernel, fn_plain, iters, plain_iters, bounded, card,
+              note=""):
+    """Times the kernel and its plain version at one shape, beside the
+    bound; also the kernel's eager time, comparable with earlier runs."""
+    ms, plain_ms = time_pair(fn_kernel, fn_plain, iters, plain_iters)
+    warm = graph_ms(fn_kernel, iters)
+    eager = eager_ms(fn_kernel)
+    bound_ms, bound_by = bounded
+    log(f"  {shape}: kernel {ms:.5f} ms (L2 warm {warm:.5f} ms{note}, eager "
+        f"{eager:.5f} ms), plain torch {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms ({100 * bound_ms / ms:.1f}% of it) on {card}")
+    return {"shape": list(shape), "ms": ms, "warm_ms": warm,
+            "eager_ms": eager, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+
+
+def check_fs_table(dev, card):
+    """Phase 2, K1: fs_table == plain version on the card, exactly, then
+    timed at the main paths' shapes: Case B's plan chunk (524288, 8) and
+    the device mode's dense (65536, 64) and sparse (131072, 32) Rice
+    tables. Returns (max_abs_err, [timed rows])."""
     g = torch.Generator(device=dev).manual_seed(2026)
 
     def rand(nb, J, hi=65536):
         return torch.randint(0, hi, (nb, J), generator=g, device=dev,
-                             dtype=torch.int32)
+                             dtype=torch.int64).to(torch.int32)
+
+    def mapped(nb, J):
+        # zigzag-mapped coefficients: magnitudes spread over 16 bits
+        return rand(nb, J) >> rand(nb, J, 16)
 
     misaligned = torch.empty(100003 * 8 + 1, dtype=torch.int32, device=dev)
     misaligned[1:] = rand(100003, 8).reshape(-1)
     cases = {
         "path chunk (524288, 8)": rand(524288, 8),
         "path remainder (131072, 8)": rand(131072, 8),
+        "device dense (65536, 64)": mapped(65536, 64),
+        "device sparse (131072, 32)": mapped(131072, 32),
         "odd block count (100003, 8)": rand(100003, 8),
         "J=16 (262144, 16)": rand(262144, 16),
         "J=5 (4099, 5)": rand(4099, 5),
+        "J=4 (4099, 4)": rand(4099, 4),
+        "J=2 (4099, 2)": rand(4099, 2),
+        "J=1 (4099, 1)": rand(4099, 1),
+        "values to 2^31-1 (65536, 64)": rand(65536, 64, 1 << 31),
+        "values to 2^25 (131072, 8)": rand(131072, 8, 1 << 25),
         "misaligned rows (100003, 8)": misaligned[1:].view(100003, 8),
         "saturating 65535 (524288, 8)": torch.full((524288, 8), 65535,
                                                    dtype=torch.int32,
@@ -152,56 +260,121 @@ def check_kernel(dev, card):
         if not torch.equal(got, want):
             raise AssertionError(f"K1 != plain at {name}: max|err| {err}")
         log(f"[K1] {name}: equal")
-    x = cases["path chunk (524288, 8)"]
-    # in turns on one card: plain, kernel, kernel, plain
-    p1 = event_ms(lambda: fs_table_ref(x))
-    k1 = event_ms(lambda: fs_table(x))
-    k2 = event_ms(lambda: fs_table(x))
-    p2 = event_ms(lambda: fs_table_ref(x))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    log(f"[K1] (524288, 8): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-        f"({k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on {card}")
-    return worst, ms, plain_ms
+    log("[K1] times (CUDA graphs, L2 flushed before each launch; warm: the "
+        "16.8 MB inputs stay in the 50 MB L2):")
+    rows = []
+    for name in ("device dense (65536, 64)", "device sparse (131072, 32)",
+                 "path chunk (524288, 8)"):
+        x = cases[name]
+        nb, J = x.shape
+        rows.append(timed_row((nb, J), lambda: fs_table(x),
+                              lambda: fs_table_ref(x), 50, 10,
+                              bound(4 * nb * (J + 14), 0), card,
+                              ", input in L2"))
+    return worst, rows
 
 
 def check_dwt97(dev, card):
-    """Phase 2, K2: dwt97 == plain version on the card, bit for bit;
-    returns (max_abs_err, ms, plain_ms) at Case A's pricing shape."""
+    """Phase 2, K2: dwt97 == plain version on the card, bit for bit, and
+    its input untouched, then timed at the main paths' shapes: Case A's
+    (4, 1024, 1024) and the scene row's batches. Returns (max_abs_err,
+    [timed rows])."""
     g = torch.Generator(device=dev).manual_seed(2026)
-    cases = {"path (4, 1024, 1024) L5": ((4, 1024, 1024), 5),
-             "(2, 256, 256) L3": ((2, 256, 256), 3),
-             "non-square (3, 96, 160) L5": ((3, 96, 160), 5),
-             "large plane (1, 4096, 4096) L5": ((1, 4096, 4096), 5)}
-    worst = 0.0
-    for name, (shape, levels) in cases.items():
+
+    def rand(shape):
         # 12-in-16 samples, as the Case A tiles hold
-        x = (torch.randint(0, 4096, shape, generator=g, device=dev,
-                           dtype=torch.int32) << 4).to(torch.float32)
-        got, want = dwt97(x, levels), dwt97_ref(x, levels)
+        return (torch.randint(0, 4096, shape, generator=g, device=dev,
+                              dtype=torch.int32) << 4).to(torch.float32)
+
+    cases = {"path (4, 1024, 1024) L5": ((4, 1024, 1024), 5, TAIL_MAX),
+             "scene batch (32, 1024, 1024) L5": ((32, 1024, 1024), 5,
+                                                 TAIL_MAX),
+             "scene batch (32, 992, 1024) L5": ((32, 992, 1024), 5,
+                                                TAIL_MAX),
+             "scene edge (4, 1024, 800) L5": ((4, 1024, 800), 5, TAIL_MAX),
+             "scene corner (4, 992, 800) L5": ((4, 992, 800), 5, TAIL_MAX),
+             "one level (4, 1024, 1024) L1": ((4, 1024, 1024), 1, TAIL_MAX),
+             "(2, 256, 256) L3": ((2, 256, 256), 3, TAIL_MAX),
+             "non-square (3, 96, 160) L5": ((3, 96, 160), 5, TAIL_MAX),
+             "tile kernel down to 3x5 windows (3, 96, 160) L5":
+                 ((3, 96, 160), 5, 0),
+             "windows smaller than a tile (2, 40, 48) L2": ((2, 40, 48), 2,
+                                                            0),
+             "large plane (1, 4096, 4096) L5": ((1, 4096, 4096), 5,
+                                                TAIL_MAX)}
+    worst = 0.0
+    for name, (shape, levels, tail_max) in cases.items():
+        x = rand(shape)
+        x0 = x.clone()
+        got, want = dwt97(x, levels, tail_max), dwt97_ref(x, levels)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
         if not torch.equal(got, want):
             raise AssertionError(f"K2 != plain at {name}: max|err| {err}")
-        log(f"[K2] {name}: equal")
-    x = (torch.randint(0, 4096, (4, 1024, 1024), generator=g, device=dev,
-                       dtype=torch.int32) << 4).to(torch.float32)
-    p1 = event_ms(lambda: dwt97_ref(x, 5), 20)
-    k1 = event_ms(lambda: dwt97(x, 5), 20)
-    k2 = event_ms(lambda: dwt97(x, 5), 20)
-    p2 = event_ms(lambda: dwt97_ref(x, 5), 20)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    log(f"[K2] (4, 1024, 1024) L5: kernel {ms:.4f} ms, plain torch "
-        f"{plain_ms:.4f} ms ({k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on "
-        f"{card}")
-    return worst, ms, plain_ms
+        if not torch.equal(x, x0):
+            raise AssertionError(f"K2 wrote into its input at {name}")
+        log(f"[K2] {name}: equal, input untouched")
+    log("[K2] times (CUDA graphs, L2 flushed before each launch; warm: "
+        "inputs under 50 MB stay in L2):")
+    rows = []
+    for shape in ((4, 1024, 1024), (32, 1024, 1024), (32, 992, 1024),
+                  (4, 1024, 800), (4, 992, 800)):
+        x = rand(shape)
+        n = x.numel()
+        # 14 rounded float32 operations a sample and level (a pass: four
+        # lifting steps of 3 a pair, one scaling), over the 4/3 of the
+        # samples that the levels together transform
+        note = ", input in L2" if 4 * n < 50e6 else ""
+        rows.append(timed_row(shape, lambda: dwt97(x, 5),
+                              lambda: dwt97_ref(x, 5), 10, 3,
+                              bound(8 * n, 14 * n * 4 / 3), card, note))
+    # where the time goes at (32, 1024, 1024): each launch's device span,
+    # beside a device copy of the same tensor (what moving its bytes once
+    # each way costs on this card)
+    from torch.profiler import ProfilerActivity, profile
+    x = rand((32, 1024, 1024))
+    dwt97(x, 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dwt97(x, 5)
+        x.clone()
+        torch.cuda.synchronize()
+    spans = [(e.name.replace("(anonymous namespace)::", "").split("(")[0],
+              e.time_range.elapsed_us()) for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    log(f"[K2] (32, 1024, 1024) L5 launches, device µs (profiler): "
+        f"{', '.join(f'{n} {us:.2f}' for n, us in spans)} on {card}")
+    return worst, rows
 
 
-def load_bench():
-    spec = importlib.util.spec_from_file_location("bench", ROOT / "bench.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def make_caseb_cube(rng, bands=180, size=512):
+    """bench.py's canonical Case B tile, by its recipe (bench.py:57-69):
+    shared spatial texture x smooth spectral gains + noise, 14-in-16
+    int16."""
+    base = rng.normal(0, 1, (size, size))
+    k = np.ones(9) / 9.0
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
+    base = (base - base.min()) / (np.ptp(base) + 1e-9)
+    spatial = (500 + 6000 * base)
+    gains = 0.6 + 0.8 * np.abs(np.sin(np.linspace(0.3, 5.8, bands)))[:, None, None]
+    cube = spatial[None] * gains + rng.normal(0, 12, (bands, size, size))
+    cube = np.clip(cube, -8192, 8191).astype(np.int16)
+    return ((cube.view(np.uint16) >> 2) << 2).view(np.int16)
+
+
+def make_casea_tiles(rng):
+    """bench.py's two canonical Case A tiles (HC, LC), by its recipe
+    (bench.py:72-81): 1024²×4 uint16, 12-in-16."""
+    gy, gx = np.mgrid[0:1024, 0:1024]
+    base = ((800 + 2.5 * gy + 1.5 * gx).astype(np.int32)) % 4096
+    tiles = {}
+    for tid, amp in (("HC", 400), ("LC", 40)):
+        t = np.clip(base[None] + rng.integers(-amp, amp, (4, 1024, 1024)),
+                    0, 4095).astype(np.uint16) << 4
+        tiles[tid] = t.astype(np.uint16)
+    return tiles
 
 
 def run_slice(work: Path, cube: np.ndarray, card: str):
@@ -365,9 +538,10 @@ def run_casea(work: Path, tiles, card: str):
     finally:
         J2KCodec._price_targets = price
 
-    if launches < 10 * len(tiles):
+    per_tile = len(plan(1024, 1024, 5))
+    if launches < per_tile * len(tiles):
         raise AssertionError(f"K2 launched {launches} times, expected >= "
-                             f"{10 * len(tiles)} (2 passes x 5 levels a tile)")
+                             f"{per_tile * len(tiles)} ({per_tile} a tile)")
     if len(priced) != len(tiles):
         raise AssertionError(f"expected one pricing per tile, got "
                              f"{len(priced)}")
@@ -459,68 +633,6 @@ def num(s: str) -> float:
     return float(s.replace(",", "."))
 
 
-def time_pair(fn_kernel, fn_plain, iters):
-    """(kernel ms, plain ms), each the mean of two CUDA-event windows
-    taken in turns: plain, kernel, kernel, plain."""
-    p1 = event_ms(fn_plain, iters)
-    k1 = event_ms(fn_kernel, iters)
-    k2 = event_ms(fn_kernel, iters)
-    p2 = event_ms(fn_plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def check_device_kernels(dev, card):
-    """Phase 6: K1 and K2 against their plain versions at the shapes the
-    device fast mode gives them: K1 at a 1024²×4 tile's dense (J=64) and
-    sparse (J=32) Rice tables, K2 at a batch of 8 scene tiles (32 planes)
-    and at the padded edge tiles' shapes. Returns {"fs_table": ...,
-    "dwt97": ...}, each (max_abs_err, ms, plain_ms, shape)."""
-    g = torch.Generator(device=dev).manual_seed(2027)
-    out = {}
-    worst = 0
-    timed = None
-    for nb, J in ((65536, 64), (131072, 32)):
-        # zigzag-mapped coefficients: magnitudes spread over 16 bits
-        x = (torch.randint(0, 65536, (nb, J), generator=g, device=dev,
-                           dtype=torch.int32)
-             >> torch.randint(0, 16, (nb, J), generator=g, device=dev,
-                              dtype=torch.int32))
-        got, want = fs_table(x), fs_table_ref(x)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want).abs().max())
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 != plain at ({nb}, {J}): max|err| {err}")
-        ms, plain_ms = time_pair(lambda: fs_table(x), lambda: fs_table_ref(x),
-                                 50)
-        log(f"[K1] ({nb}, {J}): equal; kernel {ms:.4f} ms, plain torch "
-            f"{plain_ms:.4f} ms on {card}")
-        timed = timed or (ms, plain_ms, [nb, J])
-    out["fs_table"] = (worst,) + timed
-    worst = 0.0
-    timed = None
-    for shape in ((32, 1024, 1024), (32, 992, 1024), (4, 1024, 800),
-                  (4, 992, 800)):
-        x = (torch.randint(0, 4096, shape, generator=g, device=dev,
-                           dtype=torch.int32) << 4).to(torch.float32)
-        got, want = dwt97(x, 5), dwt97_ref(x, 5)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K2 != plain at {shape} L5: max|err| {err}")
-        if timed is None:
-            ms, plain_ms = time_pair(lambda: dwt97(x, 5),
-                                     lambda: dwt97_ref(x, 5), 10)
-            timed = (ms, plain_ms, list(shape))
-            log(f"[K2] {shape} L5: equal; kernel {ms:.4f} ms, plain torch "
-                f"{plain_ms:.4f} ms on {card}")
-        else:
-            log(f"[K2] {shape} L5: equal")
-    out["dwt97"] = (worst,) + timed
-    return out
-
-
 def make_scene(rng):
     """bench.py's 2000×10000×4 uint16 12-in-16 Case A scene, by its recipe
     (bench.py:415-420)."""
@@ -585,9 +697,13 @@ def run_scene(work: Path, scene: np.ndarray, dev, card):
     counts = tile_counts(*scene.shape[1:], SCENE_TILE)
     n_tiles = sum(counts.values())
     n_batches = sum(-(-n // j2k_codec._TILE_BATCH) for n in counts.values())
-    if k2 != 2 * 5 * n_batches:
-        raise AssertionError(f"K2 launched {k2} times, expected "
-                             f"{10 * n_batches} (10 per tile batch)")
+    # one transform per batch of tiles of one shape, padded to the 32 grid
+    want_k2 = sum(-(-n // j2k_codec._TILE_BATCH)
+                  * len(plan(th + (-th) % 32, tw + (-tw) % 32, 5))
+                  for (th, tw), n in counts.items())
+    if k2 != want_k2:
+        raise AssertionError(f"K2 launched {k2} times, expected {want_k2} "
+                             f"({n_batches} tile batches)")
     if k1 != 3 * n_tiles:
         raise AssertionError(f"K1 launched {k1} times, expected "
                              f"{3 * n_tiles} (3 Rice sizes per tile)")
@@ -696,9 +812,9 @@ def run_device_ladder(work: Path, tiles, card):
     wall = time.perf_counter() - t0
     k1, k2 = fs_table.launches, dwt97.launches
     # one DWT per tile (kept across reps), three Rice sizes per point
-    if k2 != 10 * len(tiles):
+    if k2 != len(plan(1024, 1024, 5)) * len(tiles):
         raise AssertionError(f"K2 launched {k2} times, expected "
-                             f"{10 * len(tiles)}")
+                             f"{len(plan(1024, 1024, 5)) * len(tiles)}")
     if k1 != 3 * len(RATES_A) * 3 * len(tiles):
         raise AssertionError(f"K1 launched {k1} times, expected "
                              f"{3 * len(RATES_A) * 3 * len(tiles)}")
@@ -817,24 +933,24 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # phase 1: build K1 and K2 from this checkout's sources, and the host
-    # C++ runtime
+    # phase 1: build K1 and K2 from this checkout's sources, and the port's
+    # host C++ runtime from its copy of the sources (tpukit_torch/native/src)
     t0 = time.perf_counter()
     lib = build.build_library(force=True)
     build.load()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    host_lib = native.build_library(force=True)
     native.load()
-    log(f"[build] host C++ runtime (CCSDS-121 coder, J2K tier-1 and "
-        f"decoder) ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] host C++ runtime {host_lib.name} (CCSDS-121 coder, J2K "
+        f"tier-1 and decoder) in {time.perf_counter() - t0:.1f} s")
 
-    # phase 2: K1 and K2 against their plain versions
-    k1_err, k1_ms, plain_ms = check_kernel(dev, card)
-    k2_err, k2_ms, k2_plain_ms = check_dwt97(dev, card)
+    # phase 2: K1 and K2 against their plain versions, and their times
+    k1_err, k1_rows = check_fs_table(dev, card)
+    k2_err, k2_rows = check_dwt97(dev, card)
 
     # phase 3: the slice
-    cube = load_bench().make_caseb_cube(np.random.default_rng(2026), BANDS,
-                                        SIZE)
+    cube = make_caseb_cube(np.random.default_rng(2026), BANDS, SIZE)
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         launches = run_slice(Path(tmp), cube, card)
 
@@ -842,13 +958,12 @@ def main():
     check_metrics(cube, dev, card)
 
     # phase 5: the Case A slice
-    tiles = load_bench().make_casea_tiles(np.random.default_rng(2026))
+    tiles = make_casea_tiles(np.random.default_rng(2026))
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         k2_launches = run_casea(Path(tmp), tiles, card)
 
     # phase 6: the J2K device fast mode
     t6 = time.perf_counter()
-    fast = check_device_kernels(dev, card)
     scene = make_scene(np.random.default_rng(2026))
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         scene_k1, scene_k2 = run_scene(Path(tmp), scene, dev, card)
@@ -863,30 +978,38 @@ def main():
     if jax_loaded:
         raise AssertionError(f"JAX was imported: {jax_loaded}")
 
-    # launches and times are the device fast mode's (the scene row, and
-    # the shapes it gives each kernel); every path's count is listed too
-    kernels = {"kernels": [{
-        "name": "fs_table", "route": "cuda",
-        "source": "tpukit_torch/csrc/fs_table.cu",
-        "replaces": "tpukit/codecs/ccsds121.py:63",
-        "launches": scene_k1, "max_abs_err": max(k1_err, fast["fs_table"][0]),
-        "ms": fast["fs_table"][1], "plain_ms": fast["fs_table"][2],
-        "shape": fast["fs_table"][3],
-        "launches_by_path": {"caseB_anchor": launches, "scene_row": scene_k1,
-                             "device_ladder": ladder_k1,
-                             "device_lossless": lossless_k1,
-                             "device_rate_fit": fit_k1},
-        "anchor_shape_ms": k1_ms, "anchor_shape_plain_ms": plain_ms}, {
-        "name": "dwt97", "route": "cuda",
-        "source": "tpukit_torch/csrc/dwt97.cu",
-        "replaces": "tpukit/kernels/dwt_pallas.py:85",
-        "launches": scene_k2, "max_abs_err": max(k2_err, fast["dwt97"][0]),
-        "ms": fast["dwt97"][1], "plain_ms": fast["dwt97"][2],
-        "shape": fast["dwt97"][3],
-        "launches_by_path": {"caseA_ebcot": k2_launches,
-                             "scene_row": scene_k2,
-                             "device_ladder": ladder_k2},
-        "caseA_shape_ms": k2_ms, "caseA_shape_plain_ms": k2_plain_ms}]}
+    loaded = sorted(m for m in sys.modules
+                    if m == "tpukit" or m.startswith("tpukit."))
+    if loaded:
+        raise AssertionError(f"tpukit was imported: {loaded}")
+
+    # launches and the headline time are the device fast mode's (the scene
+    # row, and the largest shape it gives each kernel); every path's count
+    # and every main-path shape's time is listed too
+    def entry(name, source, replaces, launches, err, rows, headline, paths):
+        row = next(r for r in rows if tuple(r["shape"]) == headline)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "bound_us": 1e3 * row["bound_ms"],
+                "share_of_bound": row["share_of_bound"],
+                "shape": list(headline), "launches_by_path": paths,
+                "times": rows}
+
+    kernels = {"kernels": [
+        entry("fs_table", "tpukit_torch/csrc/fs_table.cu",
+              "tpukit/codecs/ccsds121.py:63", scene_k1, k1_err, k1_rows,
+              (65536, 64),
+              {"caseB_anchor": launches, "scene_row": scene_k1,
+               "device_ladder": ladder_k1, "device_lossless": lossless_k1,
+               "device_rate_fit": fit_k1}),
+        entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
+              "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
+              (32, 1024, 1024),
+              {"caseA_ebcot": k2_launches, "scene_row": scene_k2,
+               "device_ladder": ladder_k2})]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

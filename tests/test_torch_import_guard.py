@@ -1,14 +1,15 @@
 # -*- coding: utf-8 -*-
-"""tpukit_torch never imports JAX.
+"""tpukit_torch never imports JAX, nor anything of tpukit.
 
 A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
 small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
 the CPU) and a small tiled J2K device-mode sweep through the port's CLI,
 in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
-installed but not to be used, where no ``jax`` module may end up loaded
-either. A source scan backs it up: the port reaches tpukit only through
-``tpukit_torch/host.py``. The port also refuses a CUDA device it does not
+installed but not to be used. In both, no ``jax`` and no ``tpukit``
+module may end up loaded. A source scan backs it up: no file of the port,
+nor chip_smoke.py, imports tpukit; the port keeps its own copies of the
+host modules it needs. The port also refuses a CUDA device it does not
 have, instead of falling back to the CPU."""
 
 import json
@@ -38,7 +39,7 @@ if sys.argv[2] == "absent":
 import numpy as np
 import chip_smoke
 from tpukit_torch.cli.main import run_codec_main
-from tpukit_torch.host import manifest, tiff
+from tpukit_torch.io import manifest, tiff
 
 out = sys.argv[1]
 rng = np.random.default_rng(7)
@@ -59,6 +60,7 @@ resT = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--ent
                        "--rate-key", "quality", "--rates", "40", "--reps", "1",
                        "--tilex", "48", "--tiley", "48", "--outdir", f"{out}/runsT", "--device", "cpu"])
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+                  "tpukit": sorted(m for m in sys.modules if m == "tpukit" or m.startswith("tpukit.")),
                   "lossless": [r["lossless"] for r in res["rows"]],
                   "caseA": [r["lossless"] for r in resA["rows"]],
                   "caseA_device_tiled": [r["lossless"] for r in resT["rows"]]}))
@@ -75,16 +77,16 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got == {"jax": [], "lossless": [1, 1], "caseA": [0, 0],
+    assert got == {"jax": [], "tpukit": [], "lossless": [1, 1], "caseA": [0, 0],
                    "caseA_device_tiled": [0]}
 
 
 def test_port_sources_do_not_import_jax():
     jax_pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
-    tpukit_pat = re.compile(r"^\s*(import\s+tpukit\.|from\s+tpukit\.)", re.M)
+    tpukit_pat = re.compile(r"^\s*(import|from)\s+tpukit(\.|\s|$)", re.M)
     files = sorted((REPO / "tpukit_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert [p.name for p in files if jax_pat.search(p.read_text())] == []
-    assert [p.name for p in files if tpukit_pat.search(p.read_text())] == ["host.py"]
+    assert [p.name for p in files if tpukit_pat.search(p.read_text())] == []
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():

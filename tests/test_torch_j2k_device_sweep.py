@@ -26,6 +26,7 @@ from tpukit.cli.main import run_codec_main as jax_run_codec
 from tpukit.codecs.base import RateSpec
 from tpukit.io import tiff, write_manifest
 from tpukit_torch.cli.main import run_codec_main
+from tpukit_torch.codecs.base import RateSpec as TRateSpec
 from tpukit_torch.codecs import j2k_codec as tj2k
 from tpukit_torch.convert import from_tpukit_codec
 
@@ -35,6 +36,11 @@ BYTES_REL = 5e-3
 MSE_REL = 1e-2
 TILE = 48
 QUALITIES = [1, 10, 40, 100]
+
+
+def _port(specs):
+    """The port's own RateSpecs, with the values of tpukit's."""
+    return [TRateSpec(s.key, s.value, s.lossless) for s in specs]
 
 
 def _scene(rng, shape, amp=400):
@@ -92,7 +98,7 @@ def _close(cube, got, want):
 def test_lossless_run_equals_tpukit(cubes, dtype):
     cube = cubes["untiled" if dtype == "uint16" else "int16"]
     want = jj2k.J2KCodec(entropy="device").run(cube, dtype, RateSpec.none())
-    got = tj2k.J2KCodec(entropy="device").run(cube, dtype, RateSpec.none())
+    got = tj2k.J2KCodec(entropy="device").run(cube, dtype, TRateSpec.none())
     assert got.bitstream_bytes == want.bitstream_bytes
     assert got.extras == want.extras
     assert got.extras["lsb_shift"] == (4 if dtype == "uint16" else 2)
@@ -111,7 +117,7 @@ def test_lossy_run_equals_tpukit(cubes, key, value, rate_fit):
     want = jj2k.J2KCodec(entropy="device", rate_fit=rate_fit).run(
         cube, "uint16", rate)
     got = tj2k.J2KCodec(entropy="device", rate_fit=rate_fit).run(
-        cube, "uint16", rate)
+        cube, "uint16", TRateSpec.of(key, value))
     _close(cube, got, want)
     if rate_fit:
         assert got.extras["target_bytes"] == want.extras["target_bytes"]
@@ -128,12 +134,14 @@ def test_sweep_qualities_equals_tpukit(cubes):
     want = jj2k.J2KCodec(entropy="device").sweep_rates(cube, "uint16", specs)
     cache = {}
     port = tj2k.J2KCodec(entropy="device")
-    got = port.sweep_rates(cube, "uint16", specs, device_plan_cache=cache)
+    got = port.sweep_rates(cube, "uint16", _port(specs),
+                           device_plan_cache=cache)
     for g, w in zip(got[:-1], want[:-1]):
         _close(cube, g, w)
     assert got[-1].bitstream_bytes == want[-1].bitstream_bytes
     # a second rep reuses the cached DWT and gives the same points
-    again = port.sweep_rates(cube, "uint16", specs, device_plan_cache=cache)
+    again = port.sweep_rates(cube, "uint16", _port(specs),
+                             device_plan_cache=cache)
     assert [r.bitstream_bytes for r in again] == \
         [r.bitstream_bytes for r in got]
     assert all(torch.equal(a.recon, g.recon) for a, g in zip(again, got))
@@ -148,8 +156,8 @@ def tiled_runs(cubes):
              RateSpec.none()]
     codec = jj2k.J2KCodec(tilex=TILE, tiley=TILE, entropy="device")
     want = codec.sweep_rates(cube, "uint16", specs)
-    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", specs)
-    return cube, specs, want, got
+    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", _port(specs))
+    return cube, _port(specs), want, got
 
 
 def test_tiled_sweep_equals_tpukit(tiled_runs):
@@ -184,7 +192,7 @@ def test_ebcot_tiles_at_bpp_equal_tpukit(cubes):
     specs = [RateSpec.of("bpp", 1.0), RateSpec.of("bpp", 4.0)]
     codec = jj2k.J2KCodec(tilex=TILE, tiley=TILE)
     want = codec.sweep_rates(cube, "uint16", specs, keep_bitstream=True)
-    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", specs,
+    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", _port(specs),
                                                keep_bitstream=True)
     for g, w in zip(got, want):
         assert g.bitstreams == w.bitstreams and len(g.bitstreams) == 6 * 4

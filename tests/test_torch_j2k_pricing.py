@@ -23,6 +23,7 @@ from tpukit.codecs.base import RateSpec
 from tpukit_torch.codecs import bitplane_model as tbpc
 from tpukit_torch.codecs import j2k_codec as tj2k
 from tpukit_torch.codecs import wavelet_common as twc
+from tpukit_torch.codecs.base import RateSpec as TRateSpec
 from tpukit_torch.convert import from_tpukit_codec
 
 torch.set_num_threads(2)        # xdist workers share the host
@@ -172,7 +173,8 @@ def test_targets_match_tpukit_cpu_pricing(rng, monkeypatch, shape):
     jcodec = jj2k.J2KCodec()
     want = _tpukit_targets(monkeypatch, jcodec, cube, specs)
     got = from_tpukit_codec(jcodec)._price_targets(
-        cube, dict(enumerate(specs)))()
+        cube, {i: TRateSpec(s.key, s.value, s.lossless)
+               for i, s in enumerate(specs)})()
     assert sorted(got) == sorted(want) == list(range(len(LADDER)))
     rel = {i: abs(got[i] - want[i]) / want[i] for i in want}
     print(f"{shape}: {sum(r > 0 for r in rel.values())} of {len(rel)} "

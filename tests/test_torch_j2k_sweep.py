@@ -173,7 +173,7 @@ def test_what_is_not_ported_raises(rng, opts, spec):
     """Device-mode streams (``keep_bitstream`` with ``entropy="device"``,
     whole cubes and tiles) and the mesh sweep raise, naming their ROADMAP
     items."""
-    from tpukit_torch.host import RateSpec
+    from tpukit_torch.codecs.base import RateSpec
 
     cube = rng.integers(0, 4096, (4, 96, 160)).astype(np.uint16)
     codec = J2KCodec(**{**opts, "entropy": "device"})

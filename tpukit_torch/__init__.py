@@ -2,22 +2,23 @@
 
 The port runs bench.py's canonical pair on an NVIDIA card: the Case B
 anchor sweep (CCSDS-121 lossless coding of a band-interleaved tile with the
-full metric pass) and the Case A J2K quality ladder:
+full metric pass), the Case A J2K quality ladder and the J2K device fast
+mode:
 
-  * the flat stream, the CCSDS-121 encode plan, the J2K byte-target pricing
-    and the metric pass are torch code on an explicit device; the plan's
-    split-sample cost table and the pricing's 9/7 DWT are CUDA kernels
+  * the flat stream, the CCSDS-121 encode plan, the J2K byte-target pricing,
+    the device size model and the metric pass are torch code on an explicit
+    device; the split-sample cost table and the 9/7 DWT are CUDA kernels
     written for Hopper (``tpukit_torch/csrc/fs_table.cu``,
     ``tpukit_torch/csrc/dwt97.cu``);
-  * the entropy coding and decoding stay tpukit's host C++
-    (``tpukit.native.ccsds121_host``, ``tpukit.io.j2c_enc``,
-    ``tpukit.io.jp2``), which both packages share.
+  * the entropy coding and decoding are host C++ (``native.ccsds121_host``,
+    ``io.j2c_enc``, ``io.jp2``), built from the port's own copy of tpukit's
+    sources (``tpukit_torch/native/src``).
 
 Module names mirror ``tpukit/`` so each counterpart is easy to find. The
-package imports ``torch`` and never ``jax``: it reaches only the tpukit
-modules that load without JAX (``tpukit.native``, ``tpukit.io``,
-``tpukit.sweep.{csvio,proc}``, ``tpukit.viz.quicklooks`` and
-``tpukit.codecs.base``) and re-homes the host helpers of the others.
+package imports ``torch`` and never ``jax``, and nothing of tpukit: the host
+modules it needs are its own copies (``io.{tiff,jp2,j2c_enc,manifest,raw,
+bitdepth}``, ``sweep.{csvio,proc}``, ``viz.quicklooks``, ``native``,
+``codecs.base``).
 """
 
 __version__ = "0.1.0"

@@ -97,7 +97,7 @@ def run_codec_main(argv=None):
                 f"(ROADMAP.md 'Modules to port': {item})")
 
     from tpukit_torch.codecs.registry import create
-    from tpukit_torch.host import manifest
+    from tpukit_torch.io import manifest
     from tpukit_torch.sweep.runner import SweepConfig, run_sweep
 
     copts = {k: getattr(args, k)

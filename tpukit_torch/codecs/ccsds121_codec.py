@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from tpukit_torch.codecs import ccsds121 as model
-from tpukit_torch.host import (Codec, CodecResult, RateSpec, ccsds121_host,
-                               mem_phase)
-from tpukit_torch.host import raw as rawio
+from tpukit_torch.codecs.base import Codec, CodecResult, RateSpec
+from tpukit_torch.io import raw as rawio
+from tpukit_torch.native import ccsds121_host
+from tpukit_torch.sweep.proc import mem_phase
 from tpukit_torch.kernels.diff1 import (diff1_forward, diff1_forward_np,
                                         diff1_inverse_np)
 

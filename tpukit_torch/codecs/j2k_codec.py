@@ -54,12 +54,14 @@ import numpy as np
 import torch
 
 from tpukit_torch.codecs import wavelet_common as wc
-from tpukit_torch.codecs.base import device_work, edge_pad, work_device
+from tpukit_torch.codecs.base import (Codec, CodecResult, RateSpec,
+                                     device_work, edge_pad,
+                                     trailing_zero_shift, work_device)
 from tpukit_torch.codecs.bitplane_model import bpc_size_bytes
 from tpukit_torch.codecs.ccsds121 import encode_size_rows
-from tpukit_torch.host import (Codec, CodecResult, J2CPlan, JP2Decoder,
-                               RateSpec, at_size_multi, mem_phase,
-                               trailing_zero_shift)
+from tpukit_torch.io.j2c_enc import J2CPlan, at_size_multi
+from tpukit_torch.io.jp2 import JP2Decoder
+from tpukit_torch.sweep.proc import mem_phase
 from tpukit_torch.kernels.dwt import dwt2, idwt2, subband_slices
 from tpukit_torch.kernels.dwt97 import dwt97
 

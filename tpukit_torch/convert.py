@@ -7,12 +7,11 @@ codec configuration, the CCSDS-121 encode plan and the J2K byte targets:
   * ``from_tpukit_codec`` builds the port's codec from a tpukit one;
   * the plan is tpukit's plain dict in both packages (keys ``n``,
     ``sizes``, ``k_in``, ``bit_off``, ``seg_bits``, ``total_bits``,
-    ``bits``, ``J``, ``rsi``, ``preprocess``), so
-    ``tpukit.native.ccsds121_host`` consumes a plan from either side as it
-    is;
+    ``bits``, ``J``, ``rsi``, ``preprocess``), so the host coder
+    (``native.ccsds121_host`` in either package) consumes a plan from
+    either side as it is;
   * the J2K quality ladder's priced targets are ``{spec index: bytes}`` in
-    both packages, which both truncate to with tpukit's
-    ``tpukit.io.j2c_enc.at_size_multi``.
+    both packages, which both truncate to with ``io.j2c_enc.at_size_multi``.
 
 Reads the tpukit codec's attributes only, so this module imports nothing
 of tpukit's JAX code.

@@ -5,7 +5,8 @@ The sources in ``tpukit_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` per source, all started together, and link into
 one shared library with a plain C interface, loaded with ctypes. The
 library is built with ``--fmad=false``: no multiply and add is contracted
-into an FMA, which the 9/7 DWT's rounding contract needs (csrc/dwt97.cu). As tpukit's C++ runtime does (tpukit/native/__init__.py:31-63), the
+into an FMA, which the 9/7 DWT's rounding contract needs (csrc/dwt97.cu).
+As the port's host C++ runtime does (tpukit_torch/native/__init__.py), the
 library is keyed by a digest of the sources and flags, built at first use
 into ``tpukit_torch/csrc/build/`` and older builds are pruned. Nothing here
 runs at import: only a machine with the CUDA toolkit builds, and the CPU
@@ -108,13 +109,14 @@ def load() -> ctypes.CDLL:
             lib.tpk_fs_table.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            for name in ("tpk_dwt97_rows", "tpk_dwt97_cols"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.tpk_dwt97_tile.restype = ctypes.c_int
+            lib.tpk_dwt97_tile.argtypes = [
+                ptr, i64, i64, i32, i32, i32, ptr, i64, i64, ptr, i64, i64,
+                i32, ptr]
+            lib.tpk_dwt97_tail.restype = ctypes.c_int
+            lib.tpk_dwt97_tail.argtypes = [
+                ptr, i64, i64, i32, i32, i32, i32, ptr, i64, i64, i32, ptr]
             lib.tpk_error_string.restype = ctypes.c_char_p
             lib.tpk_error_string.argtypes = [ctypes.c_int]
             _LIB = lib

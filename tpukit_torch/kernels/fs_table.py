@@ -7,7 +7,9 @@ int32 table of mapped residuals it returns the (nb, KMAX+1) int32 table
 ``fs[b, k] = Σ_j (coded[b, j] >> k)``.
 
   * A CUDA tensor launches the hand-written Hopper kernel
-    (tpukit_torch/csrc/fs_table.cu) on the current stream, or raises.
+    (tpukit_torch/csrc/fs_table.cu) on the current stream, or raises. It
+    sums from bit-plane counts; ``fs_table_planes`` is that arithmetic in
+    torch, held equal to the plain version by the CPU tests.
   * A CPU tensor takes the plain version ``fs_table_ref``, the port of
     ``_fs_table_jnp`` (:57-60).
 
@@ -27,6 +29,44 @@ def fs_table_ref(coded: torch.Tensor) -> torch.Tensor:
     """Plain torch version: one shifted int32 row sum per k."""
     return torch.stack([(coded >> k).sum(1, dtype=torch.int32)
                         for k in range(KMAX + 1)], 1)
+
+
+def fs_table_planes(coded: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic, in torch: per row, bit-sliced counters
+    (plane i holds bit i of every bit-plane count c_t) fed eight samples
+    at a time through a Harley-Seal tree of carry-save adders and the rest
+    one at a time; then ``fs[k] = sum_i (plane_i >> k) << i`` mod 2^32
+    over the bit_length(J) planes. Non-negative int32 input."""
+    nb, J = coded.shape
+    x = coded.to(torch.int64)
+    np_ = J.bit_length()
+    p = [torch.zeros(nb, dtype=torch.int64, device=coded.device)
+         for _ in range(7)]
+
+    def csa(a, b, c):
+        return (a & b) | (a & c) | (b & c), a ^ b ^ c
+
+    def ripple(v, first):
+        for i in range(first, np_):
+            p[i], v = p[i] ^ v, p[i] & v
+
+    j = 0
+    while j + 8 <= J:
+        col = [x[:, j + i] for i in range(8)]
+        twos_a, p[0] = csa(p[0], col[0], col[1])
+        twos_b, p[0] = csa(p[0], col[2], col[3])
+        fours_a, p[1] = csa(p[1], twos_a, twos_b)
+        twos_a, p[0] = csa(p[0], col[4], col[5])
+        twos_b, p[0] = csa(p[0], col[6], col[7])
+        fours_b, p[1] = csa(p[1], twos_a, twos_b)
+        eights, p[2] = csa(p[2], fours_a, fours_b)
+        ripple(eights, 3)
+        j += 8
+    for jj in range(j, J):
+        ripple(x[:, jj], 0)
+    fs = torch.stack([sum(((p[i] >> k) << i) for i in range(np_))
+                      for k in range(KMAX + 1)], 1) & 0xFFFFFFFF
+    return torch.where(fs >= 1 << 31, fs - (1 << 32), fs).to(torch.int32)
 
 
 def fs_table(coded: torch.Tensor) -> torch.Tensor:

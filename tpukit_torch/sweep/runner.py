@@ -47,9 +47,12 @@ import numpy as np
 import torch
 
 from tpukit_torch.device import resolve_device
-from tpukit_torch.host import (Codec, MemorySampler, RateSpec, csvio,
-                               effective_data_range, manifest, tiff)
-from tpukit_torch.host import quicklooks as ql
+from tpukit_torch.codecs.base import Codec, RateSpec
+from tpukit_torch.io import manifest, tiff
+from tpukit_torch.io.bitdepth import effective_data_range
+from tpukit_torch.sweep import csvio
+from tpukit_torch.sweep.proc import MemorySampler
+from tpukit_torch.viz import quicklooks as ql
 from tpukit_torch.metrics.link import link_for_case
 from tpukit_torch.metrics.quality import (assemble_quality_many,
                                           quality_stats_ladder)
