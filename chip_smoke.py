@@ -15,7 +15,8 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      tpukit_torch/native/src, so that no build lands in a timed rep;
   2. K1 against its plain torch version on the card, exact, at the main
      paths' shapes (Case B's plan chunk and remainder, the device mode's
-     (65536, 64) and (131072, 32)), an odd block count, J = 1, 2, 4, 5
+     (65536, 64) and (131072, 32), the packer's chunks (524288, 16),
+     (327680, 16), (1048576, 8) and (655360, 8)), an odd block count, J = 1, 2, 4, 5
      and 16, values up to 2^31 - 1, a misaligned input and saturating
      input; K2 against its plain version, bit-equal and with its input
      untouched, at Case A's (4, 1024, 1024), the scene row's four batch
@@ -61,7 +62,25 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      point ``--rate-key none --entropy device`` on the HC tile: lossless,
      and bytes equal to the plain CPU run's; (d) a ``--rate-fit`` bpp
      point on the HC tile's 512² corner: within its byte budget, bytes and
-     recon equal to the plain CPU run's.
+     recon equal to the plain CPU run's;
+  7. the other lossless codecs of Case B, on phase 3's tile: (a) the
+     on-device CCSDS-121 packer alone, ``ccsds121.encode_device`` on the
+     card for the anchor's flat stream (J = 8, rsi = 2, preprocessor on)
+     and for CCSDS-123's mapped residuals (J = 16, rsi = 64, preprocessor
+     off): bytes equal to the serial C++ coder's and to ``encode_device``
+     on the CPU, ``decode_to_device`` back to the samples, K1 launched once
+     per packed chunk; (b) ``run-codec --codec ccsds123 --rate-key none
+     --reps 3 --keep-bitstream``: every rep lossless, the kept stream equal
+     to the CPU run's byte for byte and decoded by the host path back to
+     the tile, fewer bytes than phase 3's CCSDS-121 stream, K1 launched
+     once per packed chunk; a small uint16 tile, whole and tiled, lossless
+     through the same CLI; the codec's stages timed one by one, and one
+     more rep under ``torch.profiler`` for the device-busy share; (c) the
+     host codecs through the same CLI, one rep each: ``--codec ccsds123
+     --predictor standard``, ``--codec jpegls`` (lossless, and
+     ``--rate-key nearlossless_eps --rates 2`` with max|Δ| <= 2) and
+     ``--codec png``. Phases 3 and 6 must have run no per-block clamp scan
+     (only the packer needs it).
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -85,8 +104,9 @@ from tpukit_torch.cli.main import run_codec_main
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
 from tpukit_torch import native
-from tpukit_torch.codecs import j2k_codec
+from tpukit_torch.codecs import ccsds123_codec, j2k_codec
 from tpukit_torch.codecs.base import RateSpec
+from tpukit_torch.codecs.ccsds123_codec import CCSDS123Codec
 from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
 from tpukit_torch.io import manifest, tiff
@@ -102,6 +122,7 @@ PLAN_CHUNK = 1 << 22
 RATES_A = [1, 2, 4, 6, 8, 10, 15, 20, 25, 30, 35, 40, 60, 100]
 SCENE_TILE = 1024
 QUALITIES_HELD = (1, 40, 100)    # points of phase 6b held against the CPU
+PACK_CHUNK = 1 << 23             # encode_device's default chunk, in samples
 
 
 def log(*a):
@@ -218,9 +239,10 @@ def timed_row(shape, fn_kernel, fn_plain, iters, plain_iters, bounded, card,
 
 def check_fs_table(dev, card):
     """Phase 2, K1: fs_table == plain version on the card, exactly, then
-    timed at the main paths' shapes: Case B's plan chunk (524288, 8) and
-    the device mode's dense (65536, 64) and sparse (131072, 32) Rice
-    tables. Returns (max_abs_err, [timed rows])."""
+    timed at the main paths' shapes: Case B's plan chunk (524288, 8), the
+    device mode's dense (65536, 64) and sparse (131072, 32) Rice tables,
+    and the packer's chunks and remainders for J = 16 and J = 8. Returns
+    (max_abs_err, [timed rows])."""
     g = torch.Generator(device=dev).manual_seed(2026)
 
     def rand(nb, J, hi=65536):
@@ -238,6 +260,10 @@ def check_fs_table(dev, card):
         "path remainder (131072, 8)": rand(131072, 8),
         "device dense (65536, 64)": mapped(65536, 64),
         "device sparse (131072, 32)": mapped(131072, 32),
+        "pack chunk J=16 (524288, 16)": mapped(524288, 16),
+        "pack remainder J=16 (327680, 16)": mapped(327680, 16),
+        "pack chunk J=8 (1048576, 8)": rand(1048576, 8),
+        "pack remainder J=8 (655360, 8)": rand(655360, 8),
         "odd block count (100003, 8)": rand(100003, 8),
         "J=16 (262144, 16)": rand(262144, 16),
         "J=5 (4099, 5)": rand(4099, 5),
@@ -264,7 +290,10 @@ def check_fs_table(dev, card):
         "16.8 MB inputs stay in the 50 MB L2):")
     rows = []
     for name in ("device dense (65536, 64)", "device sparse (131072, 32)",
-                 "path chunk (524288, 8)"):
+                 "path chunk (524288, 8)", "pack chunk J=16 (524288, 16)",
+                 "pack remainder J=16 (327680, 16)",
+                 "pack chunk J=8 (1048576, 8)",
+                 "pack remainder J=8 (655360, 8)"):
         x = cases[name]
         nb, J = x.shape
         rows.append(timed_row((nb, J), lambda: fs_table(x),
@@ -377,13 +406,19 @@ def make_casea_tiles(rng):
     return tiles
 
 
+def write_caseb_index(work: Path, cube: np.ndarray, name="caseB") -> Path:
+    src = work / f"{name}_tile.tif"
+    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
+    idx = work / f"index_{name}.json"
+    manifest.write_manifest(idx, "caseB", "tile_512",
+                            [{"tile_id": "T01", "path": src}])
+    return idx
+
+
 def run_slice(work: Path, cube: np.ndarray, card: str):
     """Phase 3: the Case B anchor sweep through the port's CLI on CUDA;
-    returns K1's launch count in the sweep."""
-    src = work / "caseB_tile.tif"
-    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
-    idx = work / "index_caseB.json"
-    manifest.write_manifest(idx, "caseB", "tile_512", [{"tile_id": "T01", "path": src}])
+    returns K1's launch count in the sweep and the stream's bytes."""
+    idx = write_caseb_index(work, cube)
 
     plans = []
     encode_plan = model.encode_plan
@@ -408,9 +443,9 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
         model.encode_plan = encode_plan
 
     nchunks = -(-BANDS * SIZE * SIZE // PLAN_CHUNK)
-    if launches < nchunks:
-        raise AssertionError(f"K1 launched {launches} times, expected >= "
-                             f"{nchunks} (one per plan chunk)")
+    if launches != nchunks:
+        raise AssertionError(f"K1 launched {launches} times, expected "
+                             f"{nchunks} (one per plan chunk, planned once)")
     if len(plans) != 1 or plans[0] is None:
         raise AssertionError(f"expected one chunked plan, got {plans}")
 
@@ -452,7 +487,7 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     log(f"[slice] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
         f"{launches} K1 launches, {len(serial)} B stream, hbm peak "
         f"{rows[0].get('hbm_peak_mb')} MiB on {card}")
-    return launches
+    return launches, len(serial)
 
 
 def metric_pass(device, cube, lanes, valid):
@@ -924,6 +959,309 @@ def run_device_rate_fit(work: Path, tile: np.ndarray, card):
     return k1
 
 
+def pack_sizes(n: int, step: int):
+    """encode_device's chunk sizes for n samples (chunks of PACK_CHUNK
+    samples, which is a multiple of every ``step`` = J * rsi used here)."""
+    assert PACK_CHUNK % step == 0
+    return [PACK_CHUNK] * (n // PACK_CHUNK) + ([n % PACK_CHUNK]
+                                               if n % PACK_CHUNK else [])
+
+
+def check_packer(cube: np.ndarray, dev, card):
+    """Phase 7a: the on-device CCSDS-121 packer alone, for the anchor's
+    flat stream and for CCSDS-123's mapped residuals; returns K1's launch
+    counts of the two packs."""
+    shift = ccsds123_codec.trailing_zero_shift(cube)
+    xu = (torch.from_numpy(cube).to(dev).to(torch.int32) & 0xFFFF) >> shift
+    mapped, _ = ccsds123_codec.encode_model(xu)
+    del xu
+    streams = [
+        ("anchor flat stream", flat_stream(torch.from_numpy(cube), 0, 0,
+                                           SIZE, SIZE, "none", "bip"),
+         dict(bits=16, J=8, rsi=2, preprocess=True)),
+        ("mapped residuals", mapped.reshape(-1).cpu(),
+         dict(bits=16, J=16, rsi=64, preprocess=False))]
+    del mapped
+    counts = []
+    for name, x_cpu, kw in streams:
+        x_dev = x_cpu.to(dev)
+        model.encode_device(x_dev, **kw)                # warm
+        torch.cuda.synchronize()
+        fs_table.launches = 0
+        t0 = time.perf_counter()
+        bs, plan_ = model.encode_device(x_dev, return_plan=True, **kw)
+        cuda_s = time.perf_counter() - t0
+        k1 = fs_table.launches
+        sizes = pack_sizes(x_cpu.numel(), kw["J"] * kw["rsi"])
+        if plan_["sizes"] != sizes or k1 != len(sizes):
+            raise AssertionError(f"{name}: K1 launched {k1} times for chunks "
+                                 f"{plan_['sizes']}, expected one for each "
+                                 f"of {sizes}")
+        t0 = time.perf_counter()
+        serial = ccsds121_host.encode(
+            x_cpu.numpy().astype(np.uint16), kw["bits"], kw["J"], kw["rsi"],
+            flags=ccsds121_host.FLAG_PREPROCESS if kw["preprocess"] else 0)
+        serial_s = time.perf_counter() - t0
+        if bs != serial:
+            raise AssertionError(f"{name}: encode_device on the card != the "
+                                 f"serial C++ coder")
+        t0 = time.perf_counter()
+        if model.encode_device(x_cpu, **kw) != bs:
+            raise AssertionError(f"{name}: encode_device on the card != "
+                                 f"encode_device on the CPU")
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ccsds121_host.decode_to_device(bs, plan_, dev)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        if back.device.type != "cuda" or not torch.equal(back, x_dev):
+            raise AssertionError(f"{name}: decode_to_device != the samples")
+        # one full chunk's pack_words, device time from CUDA events
+        words = model.pack_cap_words(PACK_CHUNK, kw["bits"], kw["J"])
+        k0 = torch.zeros((), dtype=torch.int32, device=dev)
+        spans = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.pack_words(x_dev[:PACK_CHUNK], k0, out_words=words, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
+        # the packer's row-wise prefix sums: torch's scan of the innermost
+        # axis against the same scan through the transposed view
+        rows = x_dev[:PACK_CHUNK].reshape(-1, kw["J"])
+        scan_ms = []
+        for fn in (lambda: torch.cumsum(rows, 1),
+                   lambda: model._excl_cumsum(rows, 1)):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            scan_ms.append(start.elapsed_time(end) / 10)
+        log(f"[packer] {name}: prefix sum along the rows of "
+            f"{tuple(rows.shape)}: torch.cumsum(x, 1) {scan_ms[0]:.3f} ms, "
+            f"the packer's _excl_cumsum {scan_ms[1]:.3f} ms (CUDA events, "
+            f"10 calls) on {card}")
+        log(f"[packer] {name}: {x_cpu.numel()} samples in {len(sizes)} chunks,"
+            f" {len(bs)} B == serial C++ coder == CPU encode_device; "
+            f"decode_to_device == samples; {k1} K1 launches; encode_device "
+            f"on the card {cuda_s:.3f} s, on the CPU {cpu_s:.2f} s, serial "
+            f"C++ {serial_s:.2f} s, decode_to_device {dec_s:.3f} s (host "
+            f"clock); pack_words of one {PACK_CHUNK}-sample chunk "
+            f"{', '.join(f'{ms:.2f}' for ms in spans)} ms (CUDA events) "
+            f"on {card}")
+        counts.append(k1)
+        del x_dev, back
+    return counts
+
+
+def ccsds123_stages(cube: np.ndarray, dev, card):
+    """The stages of one CCSDS-123 ``ls`` encode and decode of the tile on
+    the card, one after the other with a synchronize between them (host
+    clock): the split of t_comp_s and t_dec_s."""
+    def lap(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cc = ccsds123_codec
+    ent = dict(bits=16, J=16, rsi=64, preprocess=False)
+    B, H, W = cube.shape
+    dc = torch.from_numpy(cube).to(dev)
+    for warm in (True, False):
+        t = {}
+        xu, t["ring view"] = lap(lambda: (dc.to(torch.int32) & 0xFFFF)
+                                 >> cc.trailing_zero_shift(cube))
+        (c, feats), t["row diff + features"] = lap(
+            lambda: (lambda c: (c, cc._features(c)))(
+                cc._signed_view(cc._row_diff_ring(xu))))
+        wq, t["fit"] = lap(lambda: cc.fit_weights(feats, c))
+        wq_dev = torch.from_numpy(wq.astype(np.int32)).to(dev)
+        mapped, t["predict + map"] = lap(lambda: cc._zigzag(cc._signed_view(
+            (c - cc._predict(feats, wq_dev)) & 0xFFFF)).reshape(-1))
+        del feats, c, xu
+
+        def pack_all():
+            parts, start = [], 0
+            k = torch.zeros((), dtype=torch.int32, device=dev)
+            for sz in pack_sizes(mapped.numel(), 16 * 64):
+                w, tb, lo, hi = model.pack_words(
+                    mapped[start:start + sz], k,
+                    out_words=model.pack_cap_words(sz, 16, 16), **ent)
+                parts.append((w, tb))
+                k = model._clip(k, lo, hi)
+                start += sz
+            return parts
+        parts, t["pack"] = lap(pack_all)
+
+        def fetch():
+            seg_bits = torch.stack([tb for _, tb in parts]).cpu().tolist()
+            return seg_bits, model._words_to_host(
+                [w[:(tb + 31) // 32 + 2]
+                 for (w, _), tb in zip(parts, seg_bits)])
+        (seg_bits, host_words), t["fetch"] = lap(fetch)
+        del parts
+        (stream, plan_), t["encode_device whole"] = lap(
+            lambda: model.encode_device(mapped, return_plan=True, **ent))
+        t["splice (whole - pack - fetch)"] = (
+            t["encode_device whole"] - t["pack"] - t["fetch"])
+        back, t["host decode + upload"] = lap(
+            lambda: ccsds121_host.decode_to_device(stream, plan_, dev))
+        _, t["band loop + cumsum"] = lap(
+            lambda: cc.decode_model(back.reshape(B, H, W), wq_dev))
+        _, t["cumsum"] = lap(
+            lambda: cc._row_cumsum_ring(back.reshape(B, H, W)))
+        del back, mapped
+    log("[ccsds123] stages, second pass (host clock, synchronized): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in t.items())
+        + f" on {card}")
+
+
+def run_ccsds123(work: Path, cube: np.ndarray, dev, card, anchor_bytes: int):
+    """Phase 7b: the CCSDS-123 ``ls`` sweep through the port's CLI on CUDA;
+    returns K1's launch count in the sweep."""
+    idx = write_caseb_index(work, cube)
+    argv = ["--indices", str(idx), "--codec", "ccsds123", "--rate-key",
+            "none", "--keep-bitstream", "--device", "cuda"]
+    B, H, W = cube.shape
+    n_chunks = len(pack_sizes(cube.size, 16 * 64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs_table.launches = 0
+    t0 = time.perf_counter()
+    res = run_codec_main(argv + ["--reps", "3", "--outdir",
+                                 str(work / "runs123")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fs_table.launches
+    if k1 != 3 * n_chunks:
+        raise AssertionError(f"K1 launched {k1} times, expected "
+                             f"{3 * n_chunks} ({n_chunks} packed chunks a "
+                             f"rep)")
+    rows = read_rows(work / "runs123" / "metrics.csv")
+    if len(rows) != 3:
+        raise AssertionError(f"expected 3 rows, got {len(rows)}")
+
+    # the same encode on the CPU (what --device cpu runs): its stream
+    t0 = time.perf_counter()
+    want = CCSDS123Codec().run(cube, "int16", RateSpec.none(),
+                               keep_bitstream=True)
+    cpu_s = time.perf_counter() - t0
+    (cpu_stream,) = want.bitstreams.values()
+    if not np.array_equal(want.recon.numpy(), cube):
+        raise AssertionError("the CPU run is not lossless")
+    for rep, row in enumerate(rows, 1):
+        rep_dir = work / "runs123" / "T01" / "norate" / f"rep_{rep:02d}"
+        stream = (rep_dir / "bit" / "t_x00000_y00000.bit").read_bytes()
+        if stream != cpu_stream:
+            raise AssertionError(f"rep {rep}: stream on the card != the "
+                                 f"CPU run's")
+        if (row["lossless"], row["max_abs_err"]) != ("1", "0"):
+            raise AssertionError(f"rep {rep}: not lossless: {row}")
+        if int(row["bitstream_bytes"]) != len(stream):
+            raise AssertionError(f"rep {rep}: bitstream_bytes mismatch")
+    if len(stream) >= anchor_bytes:
+        raise AssertionError(f"CCSDS-123 {len(stream)} B is not below the "
+                             f"anchor's CCSDS-121 {anchor_bytes} B")
+    with tiff.open(work / "runs123" / "T01" / "norate" / "rep_01"
+                   / "recon.tif") as ds:
+        if not np.array_equal(ds.read(), cube):
+            raise AssertionError("recon.tif != input tile")
+    # the kept stream through the host decode path (no plan), on the CPU
+    t0 = time.perf_counter()
+    ring = CCSDS123Codec._decode_device(stream, B, H, W)
+    host_dec_s = time.perf_counter() - t0
+    if not np.array_equal(ring.numpy().astype(np.uint16).view(np.int16), cube):
+        raise AssertionError("host decode of the kept stream != input tile")
+    log(f"[ccsds123] 3 reps lossless; stream {len(stream)} B == the CPU "
+        f"run's (CPU codec run {cpu_s:.1f} s), "
+        f"{100.0 * len(stream) / anchor_bytes:.1f}% of the anchor's "
+        f"{anchor_bytes} B; host decode of the kept stream == tile "
+        f"({host_dec_s:.1f} s on the CPU)")
+    for rep, r in enumerate(rows, 1):
+        log(f"[ccsds123] rep {rep}: t_comp_s {r['t_comp_s']}, t_dec_s "
+            f"{r['t_dec_s']}, t_wrap_s {r['t_wrap_s']} on {card}")
+    log(f"[ccsds123] sweep wall {wall:.2f} s, phases {res['phases']}, {k1} "
+        f"K1 launches, hbm peak {rows[0].get('hbm_peak_mb')} MiB (process "
+        f"peak, reset before the sweep) on {card}")
+
+    # a uint16 source (Case A's type): the recon handed to the runner is a
+    # torch.uint16 tensor on the card, whole, and a host array when tiled
+    u16 = make_casea_tiles(np.random.default_rng(2026))["HC"][:, :160, :128]
+    idx16 = write_caseb_index(work, np.ascontiguousarray(u16), "caseB_u16")
+    for tag, extra in (("whole", []), ("tiled", ["--tile", "64"])):
+        out = work / f"runs123u16{tag}"
+        r16 = run_codec_main(["--indices", str(idx16), "--codec", "ccsds123",
+                              "--rate-key", "none", "--reps", "1", "--outdir",
+                              str(out), "--device", "cuda", *extra])
+        (row,) = r16["rows"]
+        if (row["lossless"], row["max_abs_err"]) != (1, 0):
+            raise AssertionError(f"uint16 {tag}: not lossless: {row}")
+        with tiff.open(out / "T01" / "norate" / "rep_01" / "recon.tif") as ds:
+            if not np.array_equal(ds.read(), u16):
+                raise AssertionError(f"uint16 {tag}: recon.tif != input")
+    log(f"[ccsds123] uint16 {u16.shape} tile lossless on the card, whole and "
+        f"in 64² tiles")
+
+    ccsds123_stages(cube, dev, card)
+
+    # one more rep, traced, for its device-busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_codec_main(argv + ["--reps", "1", "--outdir",
+                               str(work / "runs123t")])
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    busy = busy_ms(prof)
+    log(f"[ccsds123] traced one-rep sweep wall {traced:.2f} s, device busy "
+        f"{busy:.1f} ms ({100.0 * busy / (1000.0 * traced):.2f}% busy"
+        + (", no device events traced: not measured" if busy == 0 else "")
+        + f") on {card}")
+    avgs = prof.key_averages()
+    sort = ("self_device_time_total" if avgs and hasattr(
+        avgs[0], "self_device_time_total") else "self_cuda_time_total")
+    log(avgs.table(sort_by=sort, row_limit=12, max_name_column_width=48))
+    return k1
+
+
+def run_host_codecs(work: Path, cube: np.ndarray, card):
+    """Phase 7c: CCSDS-123 ``standard``, JPEG-LS and PNG (host codecs; the
+    metric pass runs on the card) through the port's CLI, one rep each."""
+    idx = write_caseb_index(work, cube, "caseB_host")
+    runs = [("ccsds123 standard", ["--codec", "ccsds123", "--predictor",
+                                   "standard"], 0),
+            ("jpegls", ["--codec", "jpegls"], 0),
+            ("jpegls near 2", ["--codec", "jpegls", "--rate-key",
+                               "nearlossless_eps", "--rates", "2"], 2),
+            ("png", ["--codec", "png"], 0)]
+    for i, (name, argv, max_err) in enumerate(runs):
+        t0 = time.perf_counter()
+        run_codec_main(["--indices", str(idx), "--reps", "1",
+                        "--no-artifacts", "--outdir", str(work / f"runsH{i}"),
+                        "--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (row,) = read_rows(work / f"runsH{i}" / "metrics.csv")
+        err = int(row["max_abs_err"])
+        if max_err == 0 and (row["lossless"], err) != ("1", 0):
+            raise AssertionError(f"{name}: not lossless: {row}")
+        if err > max_err or (max_err and row["lossless"] != "0"):
+            raise AssertionError(f"{name}: max|err| {err} > {max_err}, or "
+                                 f"marked lossless: {row}")
+        log(f"[host codecs] {name}: {row['bitstream_bytes']} B, max|err| "
+            f"{err}, t_comp_s {row['t_comp_s']}, t_dec_s {row['t_dec_s']}; "
+            f"wall {wall:.2f} s on {card}")
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -945,6 +1283,17 @@ def main():
     log(f"[build] host C++ runtime {host_lib.name} (CCSDS-121 coder, J2K "
         f"tier-1 and decoder) in {time.perf_counter() - t0:.1f} s")
 
+    # the packer's per-block clamp scan, counted: the size-only paths of
+    # phases 3-6 must not run it
+    scans = {"n": 0}
+    scan_clamps = model._scan_clamps
+
+    def counting_scan(lo, hi):
+        scans["n"] += 1
+        return scan_clamps(lo, hi)
+
+    model._scan_clamps = counting_scan
+
     # phase 2: K1 and K2 against their plain versions, and their times
     k1_err, k1_rows = check_fs_table(dev, card)
     k2_err, k2_rows = check_dwt97(dev, card)
@@ -952,7 +1301,7 @@ def main():
     # phase 3: the slice
     cube = make_caseb_cube(np.random.default_rng(2026), BANDS, SIZE)
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
-        launches = run_slice(Path(tmp), cube, card)
+        launches, anchor_bytes = run_slice(Path(tmp), cube, card)
 
     # phase 4: lossy metric pass
     check_metrics(cube, dev, card)
@@ -972,6 +1321,18 @@ def main():
         lossless_k1 = run_device_lossless(Path(tmp), tiles["HC"], card)
         fit_k1 = run_device_rate_fit(Path(tmp), tiles["HC"], card)
     log(f"[fast mode] phase 6 in {time.perf_counter() - t6:.1f} s")
+    if scans["n"]:
+        raise AssertionError(f"phases 3-6 ran the per-block clamp scan "
+                             f"{scans['n']} times; only the packer needs it")
+
+    # phase 7: the other lossless codecs of Case B
+    t7 = time.perf_counter()
+    pack_anchor_k1, pack_mapped_k1 = check_packer(cube, dev, card)
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        c123_k1 = run_ccsds123(Path(tmp), cube, dev, card, anchor_bytes)
+        run_host_codecs(Path(tmp), cube, card)
+    log(f"[caseB codecs] phase 7 in {time.perf_counter() - t7:.1f} s, "
+        f"{scans['n']} clamp scans (one per packed chunk)")
 
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
@@ -1004,7 +1365,10 @@ def main():
               (65536, 64),
               {"caseB_anchor": launches, "scene_row": scene_k1,
                "device_ladder": ladder_k1, "device_lossless": lossless_k1,
-               "device_rate_fit": fit_k1}),
+               "device_rate_fit": fit_k1,
+               "packer_anchor_stream": pack_anchor_k1,
+               "packer_mapped_residuals": pack_mapped_k1,
+               "ccsds123_sweep": c123_k1}),
         entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
               "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
               (32, 1024, 1024),

@@ -2,14 +2,18 @@
 """The port's own copies of tpukit's host modules behave as the originals.
 
 tpukit_torch keeps copies of the host code it needs (``io``, ``sweep.csvio``,
-``sweep.proc``, ``viz.quicklooks``, ``native`` with its C++ sources and the
-codec API of ``codecs.base``) instead of importing tpukit. Here the same
-seeded inputs go through both packages: the writers give byte-equal files,
-the native library is built from the port's own sources and codes as
+``sweep.proc``, ``viz.quicklooks``, ``native`` with its C++ sources, the
+codec API of ``codecs.base`` and the host codecs ``codecs.ccsds123_std``,
+``codecs.jpegls_codec`` and ``codecs.png_codec``) instead of importing
+tpukit. Here the copies are held to the originals as text (the package name
+in the imports apart, and ``decode_to_device``, which uploads with torch),
+the same seeded inputs go through both packages: the writers give byte-equal
+files, the native library is built from the port's own sources and codes as
 tpukit's does, and chip_smoke.py's input recipes give bench.py's arrays.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +41,52 @@ def _load(name: str, path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# copies that differ from the original only in the package their imports
+# name (and so in how an import statement wraps), and the function each
+# leaves to the port's own code
+COPIES = {
+    "codecs/ccsds123_std.py": None,
+    "codecs/jpegls_codec.py": None,
+    "codecs/png_codec.py": None,
+    "native/ccsds121_host.py": "decode_to_device",
+    "io/tiff.py": None,
+    "io/jp2.py": None,
+    "io/j2c_enc.py": None,
+    "io/manifest.py": None,
+    "io/raw.py": None,
+    "sweep/csvio.py": None,
+    "sweep/proc.py": None,
+    "viz/quicklooks.py": None,
+}
+
+
+def _source(path: Path, without):
+    text = "\n".join(line for line in path.read_text().splitlines()
+                     if not line.startswith("# The port's copy of"))
+    if without:
+        text, cuts = re.subn(r"\ndef %s\(.*?(?=\n\ndef )" % without, "", text,
+                             flags=re.S)
+        assert cuts == 1, (path, without)
+    return " ".join(text.replace("tpukit_torch", "tpukit").split())
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copied_sources_equal_tpukit(rel):
+    """A copy is the original's text, whitespace apart, with ``tpukit`` in
+    the imports replaced by ``tpukit_torch``."""
+    port = REPO / "tpukit_torch" / rel
+    assert "# The port's copy of tpukit/" + rel in port.read_text()
+    assert _source(port, COPIES[rel]) == \
+        _source(REPO / "tpukit" / rel, COPIES[rel])
+
+
+def test_native_sources_equal_tpukit():
+    src = REPO / "tpukit" / "native" / "src"
+    for path in sorted(src.iterdir()):
+        assert (REPO / "tpukit_torch" / "native" / "src" / path.name
+                ).read_bytes() == path.read_bytes(), path.name
 
 
 @pytest.mark.parametrize("dtype,kw", [

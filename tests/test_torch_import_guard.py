@@ -3,8 +3,9 @@
 
 A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
 small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
-the CPU) and a small tiled J2K device-mode sweep through the port's CLI,
-in two conditions:
+the CPU), a small tiled J2K device-mode sweep and one sweep of each of the
+other lossless codecs (CCSDS-123 with both predictors, JPEG-LS lossless and
+near-lossless, PNG) through the port's CLI, in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used. In both, no ``jax`` and no ``tpukit``
 module may end up loaded. A source scan backs it up: no file of the port,
@@ -59,7 +60,19 @@ resA = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k",
 resT = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
                        "--rate-key", "quality", "--rates", "40", "--reps", "1",
                        "--tilex", "48", "--tiley", "48", "--outdir", f"{out}/runsT", "--device", "cpu"])
-print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+others = {}
+for tag, argv in {"ccsds123": ["--codec", "ccsds123", "--tile", "16"],
+                  "ccsds123_standard": ["--codec", "ccsds123_ext", "--predictor", "standard",
+                                        "--interleave", "bip"],
+                  "jpegls": ["--codec", "jpegls"],
+                  "jpegls_near": ["--codec", "jpegls", "--rate-key", "nearlossless_eps",
+                                  "--rates", "2"],
+                  "png": ["--codec", "png", "--zlevel", "3"]}.items():
+    r = run_codec_main(["--indices", f"{out}/idx.json", "--reps", "1", "--keep-bitstream",
+                        "--outdir", f"{out}/runs_{tag}", "--device", "cpu", *argv])
+    others[tag] = [[row["lossless"], int(row["max_abs_err"])] for row in r["rows"]]
+print(json.dumps({"others": others,
+                  "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "tpukit": sorted(m for m in sys.modules if m == "tpukit" or m.startswith("tpukit.")),
                   "lossless": [r["lossless"] for r in res["rows"]],
                   "caseA": [r["lossless"] for r in resA["rows"]],
@@ -78,7 +91,10 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got == {"jax": [], "tpukit": [], "lossless": [1, 1], "caseA": [0, 0],
-                   "caseA_device_tiled": [0]}
+                   "caseA_device_tiled": [0],
+                   "others": {"ccsds123": [[1, 0]], "ccsds123_standard": [[1, 0]],
+                              "jpegls": [[1, 0]], "jpegls_near": [[0, 2]],
+                              "png": [[1, 0]]}}
 
 
 def test_port_sources_do_not_import_jax():

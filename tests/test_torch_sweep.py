@@ -118,7 +118,7 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
                                    ["--compressor-cmd", "aec"],
                                    ["--codec", "j2k", "--entropy", "device",
                                     "--keep-bitstream"],
-                                   ["--codec", "png"]])
+                                   ["--codec", "ccsds122"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     """Options and codecs the port does not have yet raise, naming their
     ROADMAP item, before any input is read."""

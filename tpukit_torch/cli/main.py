@@ -4,7 +4,9 @@
 ``python -m tpukit_torch run-codec ...`` is tpukit's sweep runner CLI
 (tpukit/cli/main.py:26-189, reference tools/run_codec.py:374-399) on a
 torch device, plus ``--device`` (default ``cuda``; an absent card is an
-error, not a fall back to the CPU). Flags the port cannot honour yet
+error, not a fall back to the CPU). Codecs: ccsds121, ccsds123 (both
+predictors), jpegls, png and j2k; ccsds122 is refused with its ROADMAP
+item. Flags the port cannot honour yet
 (``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``, and
 ``--keep-bitstream`` with ``--entropy device``) raise
 ``NotImplementedError``.
@@ -24,8 +26,10 @@ def run_codec_main(argv=None):
                     "metrics per tile")
     ap.add_argument("--indices", required=True)
     ap.add_argument("--codec", required=True,
-                    help="codec name (ccsds121 or j2k, or the reference "
-                         "labels ccsds121_ext and j2k_gdal)")
+                    help="codec name (ccsds121, ccsds123, jpegls, png or "
+                         "j2k) or its reference label (ccsds121_ext, "
+                         "ccsds123_ext, jpegls_subproc, png_lossless, "
+                         "j2k_gdal)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--compressor-cmd", nargs="+", default=None)
@@ -56,8 +60,8 @@ def run_codec_main(argv=None):
     ap.add_argument("--interleave", default=None)
     ap.add_argument("--preproc", default=None)
     ap.add_argument("--nbit", type=int, default=None)
-    # options of the codecs not ported yet: accepted and handed to the
-    # codec as tpukit does, which refuses the ones it does not take
+    # handed to the codec as tpukit does, which refuses the ones it does
+    # not take
     ap.add_argument("--zlevel", type=int, default=None)
     ap.add_argument("--png-writer", dest="png_writer",
                     choices=("tpukit", "compat"), default=None)

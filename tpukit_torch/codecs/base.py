@@ -2,8 +2,9 @@
 """Codec API and work-cube adoption: the port's copy of the parts of
 tpukit/codecs/base.py it uses.
 
-``RateSpec``, ``CodecResult``, ``Codec`` and ``trailing_zero_shift``
-(:67-148, :223-240) are copied verbatim. ``device_work`` (:162-203) is
+``RateSpec``, ``CodecResult``, ``Codec``, ``int16_to_codec_domain``,
+``codec_domain_to_int16`` and ``trailing_zero_shift`` (:67-159, :223-240)
+are copied verbatim. ``device_work`` (:162-203) is
 ported to torch: the sweep runner uploads each tile once
 (``opts["device_cube"]``); a codec takes its device work from that upload
 when the shape fits, converting on the device, and otherwise converts on
@@ -129,20 +130,48 @@ def edge_pad(x: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
     return x.contiguous()
 
 
+def int16_to_codec_domain(band: np.ndarray) -> np.ndarray:
+    """int16 -> uint16 via +32768, the mapping the reference applies before
+    handing int16 planes to 16-bit unsigned codecs (jpegls_wrap.py:199)."""
+    return (band.astype(np.int32) + 32768).astype(np.uint16)
+
+
+def codec_domain_to_int16(band_u16: np.ndarray) -> np.ndarray:
+    """Inverse of int16_to_codec_domain (jpegls_wrap.py:247-249)."""
+    return np.clip(band_u16.astype(np.int32) - 32768, -32768, 32767).astype(np.int16)
+
+
 def device_work(cube: np.ndarray, opts: dict, multiple: int = 1,
-                target: torch.dtype = torch.int32) -> torch.Tensor:
-    """(B, Hp, Wp) tensor of ``cube`` in ``target`` dtype, edge-padded so
-    that Hp and Wp are multiples of ``multiple``, on :func:`work_device`.
+                target=torch.int32) -> torch.Tensor:
+    """(B, Hp, Wp) tensor of ``cube`` in the ``target`` domain, edge-padded
+    so that Hp and Wp are multiples of ``multiple``, on :func:`work_device`.
     The runner's upload is converted on the device when its shape is the
     cube's; otherwise the cube is converted on the host and uploaded once.
-    (tpukit's uint16 bit view of int16 sources has no caller in the port
-    yet.)"""
+
+    ``target`` is ``torch.int32``, ``torch.float32`` or the string
+    ``"uint16"``: the mod-2^16 ring values of the samples, an int16 source
+    through its uint16 **bit view** (-1 -> 65535), as tpukit's bitcast
+    gives them. torch has few ops on ``torch.uint16``, so the ring values
+    are carried as int32 in [0, 65535]; a float upload (a lossy source)
+    does not qualify and the host cube is converted instead."""
+    ring = isinstance(target, str) and target == "uint16"
+    if ring:
+        target = torch.int32
     B, H, W = cube.shape
     Hp, Wp = H + (-H) % multiple, W + (-W) % multiple
     dev = opts.get("device_cube")
-    if dev is not None and tuple(dev.shape) == (B, H, W):
-        return edge_pad(dev.to(target), Hp, Wp)
-    host, _, _ = pad_to_multiple(cube.astype(_NUMPY[target]), multiple)
+    if (dev is not None and tuple(dev.shape) == (B, H, W)
+            and not (ring and dev.dtype.is_floating_point)):
+        work = dev.to(target)
+        if ring:
+            work = work & 0xFFFF
+        return edge_pad(work, Hp, Wp)
+    if ring:
+        host = (cube.view(np.uint16) if cube.dtype == np.int16
+                else cube.astype(np.uint16)).astype(np.int32)
+    else:
+        host = cube.astype(_NUMPY[target])
+    host, _, _ = pad_to_multiple(host, multiple)
     return torch.from_numpy(np.ascontiguousarray(host)).to(work_device(opts))
 
 

@@ -2,9 +2,9 @@
 """Codec registry: name -> constructor, with the reference-label aliases of
 tpukit/codecs/registry.py:10-17 so CSV codec ids map onto codecs.
 
-The port has CCSDS-121 and J2K (both entropy backends) so far. The other
-tpukit codecs raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them."""
+The port has CCSDS-121, CCSDS-123 (both predictors), JPEG-LS, PNG and J2K
+(both entropy backends). CCSDS-122 raises ``NotImplementedError`` naming
+the ROADMAP.md item that ports it."""
 
 from __future__ import annotations
 
@@ -17,24 +17,33 @@ _ALIASES = {
     "png_lossless": "png",
 }
 
+# name -> (module under tpukit_torch.codecs, class); imported at first use
+_CODECS = {
+    "ccsds121": ("ccsds121_codec", "CCSDS121Codec"),
+    "ccsds123": ("ccsds123_codec", "CCSDS123Codec"),
+    "j2k": ("j2k_codec", "J2KCodec"),
+    "jpegls": ("jpegls_codec", "JPEGLSCodec"),
+    "png": ("png_codec", "PNGCodec"),
+}
+
 _NOT_PORTED = {
     "ccsds122": "ROADMAP.md 'Modules to port', item 15 (CCSDS-122)",
-    "ccsds123": "ROADMAP.md 'Modules to port', item 16 (CCSDS-123)",
-    "jpegls": "ROADMAP.md 'Modules to port', item 17 (JPEG-LS and PNG)",
-    "png": "ROADMAP.md 'Modules to port', item 17 (JPEG-LS and PNG)",
 }
 
 
 def create(name: str, **opts):
     key = _ALIASES.get(name, name)
-    if key == "ccsds121":
-        from tpukit_torch.codecs.ccsds121_codec import CCSDS121Codec
-        return CCSDS121Codec(**opts)
-    if key == "j2k":
-        from tpukit_torch.codecs.j2k_codec import J2KCodec
-        return J2KCodec(**opts)
+    if key in _CODECS:
+        from importlib import import_module
+        module, cls = _CODECS[key]
+        return getattr(import_module(f"tpukit_torch.codecs.{module}"),
+                       cls)(**opts)
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"codec '{name}' is not ported to tpukit_torch yet: "
             f"{_NOT_PORTED[key]}")
-    raise KeyError(f"Unknown codec '{name}'. Known: ['ccsds121', 'j2k']")
+    raise KeyError(f"Unknown codec '{name}'. Known: {names()}")
+
+
+def names():
+    return sorted(_CODECS)

@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-# The port's copy of tpukit/native/ccsds121_host.py: only its imports point at the port.
+# The port's copy of tpukit/native/ccsds121_host.py: its imports point at the port, and decode_to_device uploads with torch.
 """Host-side CCSDS-121 encode/decode (ctypes wrapper over the C++ coder).
 
 Bit-exact with libaec (the engine behind the reference's `aec` CLI —
@@ -141,6 +141,41 @@ def decode_parallel(bitstream: bytes, plan: dict,
                                                        nseg)) as pool:
         list(pool.map(dec_one, range(nseg)))
     return out
+
+
+def decode_to_device(bitstream: bytes, plan: dict, device):
+    """Decode a planned stream chunk-by-chunk, starting each chunk's
+    upload to ``device`` as soon as it is decoded (a non-blocking copy from
+    pinned host memory when the device is a CUDA one), so the host entropy
+    decode of chunk i+1 overlaps the transfer of chunk i. Returns a flat
+    int32 tensor of plan["n"] samples on ``device``: torch has few ops on
+    uint16, so the 16-bit samples travel as their int16 bit view and are
+    widened to their unsigned values in [0, 65535] there."""
+    import torch
+
+    device = torch.device(device)
+    lib = native.load()
+    b = np.frombuffer(bitstream, np.uint8)
+    bits, J, rsi = plan["bits"], plan["J"], plan["rsi"]
+    flags = FLAG_PREPROCESS if plan.get("preprocess", True) else 0
+    n = int(plan["n"])
+    host = torch.empty(n, dtype=torch.int16,
+                       pin_memory=device.type == "cuda")
+    host_u16 = host.numpy().view(np.uint16)
+    out = torch.empty(n, dtype=torch.int16, device=device)
+    start = 0
+    for i, cnt in enumerate(plan["sizes"]):
+        cnt = int(cnt)
+        seg = host_u16[start:start + cnt]
+        r = lib.ck121_decode_seg(
+            b.ctypes.data_as(_u8p), b.size, int(plan["bit_off"][i]),
+            bits, J, rsi, flags, seg.ctypes.data_as(_u16p), cnt)
+        if r != cnt:
+            raise RuntimeError(f"ck121_decode_seg chunk {i} failed: {r}")
+        out[start:start + cnt].copy_(host[start:start + cnt],
+                                     non_blocking=True)
+        start += cnt
+    return out.to(torch.int32) & 0xFFFF
 
 
 def decode(bitstream: bytes, n_samples: int, bits: int = 16,
