@@ -80,7 +80,27 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      --predictor standard``, ``--codec jpegls`` (lossless, and
      ``--rate-key nearlossless_eps --rates 2`` with max|Δ| <= 2) and
      ``--codec png``. Phases 3 and 6 must have run no per-block clamp scan
-     (only the packer needs it).
+     (only the packer needs it);
+  8. CCSDS-122, the sixth codec, and the kept streams of the J2K device
+     mode, on phase 5's two 1024²×4 tiles: (a) the BPE rate ladder,
+     ``run-codec --codec ccsds122 --rate-key bpp --rates 0.5 1 2 4 16
+     --reps 1 --keep-bitstream``: every kept ``.bpe`` stream as long as the
+     device model says, the 16 bpp point lossless, bytes and PSNR rising
+     with the rate, ``bpe122.decode_plane`` of the kept streams, inverse
+     transformed on the host, equal to recon.tif, and the HC tile at 1 and
+     16 bpp equal to the plain CPU run (bytes, streams, recons); its stages
+     timed one by one, and the sweep once more under ``torch.profiler``;
+     (b) the same with ``--entropy embedded``: ``.wbit`` lengths equal to
+     the model's, the lossless ``.bit`` streams decoded back to the tiles,
+     K1 launched three times a tile for the lossless point, HC equal to the
+     CPU run; (c) ``run-codec --codec j2k --entropy device --rate-key
+     quality --rates 10 40 100 --keep-bitstream`` on the HC tile and phase
+     6's scene-row command with ``--keep-bitstream`` on the scene's
+     2000×1808 crop: no checksum warning, the kept streams equal to the CPU
+     run's byte for byte, ``wenc_decode`` of them, dequantized and inverse
+     transformed, equal to recon.tif, K1 and K2 launches as counted; (d)
+     one 2 bpp CCSDS-122 point on phase 3's 180-band tile, for the band
+     grouping of the BPE model and its device-memory peak.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -95,23 +115,28 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpukit_torch.cli.main import run_codec_main
+from tpukit_torch.cli.main import run_codec_config, run_codec_main
+from tpukit_torch.codecs import bpe122, bpe122_model, ccsds122_codec
 from tpukit_torch.codecs import ccsds121 as model
+from tpukit_torch.codecs import wavelet_common as wc
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
 from tpukit_torch import native
 from tpukit_torch.codecs import ccsds123_codec, j2k_codec
-from tpukit_torch.codecs.base import RateSpec
+from tpukit_torch.codecs.base import RateSpec, device_work
+from tpukit_torch.codecs.ccsds122_codec import CCSDS122Codec
 from tpukit_torch.codecs.ccsds123_codec import CCSDS123Codec
 from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
 from tpukit_torch.io import manifest, tiff
 from tpukit_torch.io.jp2 import JP2Decoder
 from tpukit_torch.kernels import build
+from tpukit_torch.kernels.dwt import dwt2, idwt2
 from tpukit_torch.native import ccsds121_host
 from tpukit_torch.kernels.dwt97 import TAIL_MAX, dwt97, dwt97_ref, plan
 from tpukit_torch.kernels.fs_table import fs_table, fs_table_ref
@@ -123,10 +148,20 @@ RATES_A = [1, 2, 4, 6, 8, 10, 15, 20, 25, 30, 35, 40, 60, 100]
 SCENE_TILE = 1024
 QUALITIES_HELD = (1, 40, 100)    # points of phase 6b held against the CPU
 PACK_CHUNK = 1 << 23             # encode_device's default chunk, in samples
+RATES_122 = ["0.5", "1", "2", "4", "16"]     # bpp a band; 16 is lossless
+RATES_122_HELD = ["1", "16"]     # points of phase 8 held against the CPU
+QUALITIES_KEPT = (10, 40, 100)   # phase 8c's kept-stream ladder
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def run_codec(argv):
+    """A ``run-codec`` command line through the sweep runner, as
+    ``run_codec_main`` runs it; returns the runner's result dict (rows,
+    phases), which the CLI entry point does not hand on."""
+    return runner.run_sweep(run_codec_config(argv))
 
 
 def card_line() -> str:
@@ -431,7 +466,7 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     try:
         fs_table.launches = 0
         t0 = time.perf_counter()
-        res = run_codec_main([
+        res = run_codec([
             "--indices", str(idx), "--codec", "ccsds121",
             "--rate-key", "none", "--reps", "3", "--outdir", str(work / "runs"),
             "--preproc", "none", "--nbit", "16", "--interleave", "bip",
@@ -562,7 +597,7 @@ def run_casea(work: Path, tiles, card: str):
     try:
         dwt97.launches = 0
         t0 = time.perf_counter()
-        res = run_codec_main([
+        res = run_codec([
             "--indices", str(idx), "--codec", "j2k",
             "--rate-key", "quality", "--rates", *map(str, RATES_A),
             "--reps", "3", "--outdir", str(work / "runsA"),
@@ -704,6 +739,28 @@ def busy_ms(prof) -> float:
     return busy / 1000.0
 
 
+def traced_sweep(tag: str, argv, card):
+    """One more sweep under torch.profiler: its device-busy share and the
+    twelve device operations that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if run_codec_main(argv) != 0:
+            raise AssertionError(f"{tag}: run_codec_main did not return 0")
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    busy = busy_ms(prof)
+    log(f"[{tag}] traced sweep wall {traced:.2f} s, device busy {busy:.1f} ms "
+        f"({100.0 * busy / (1000.0 * traced):.2f}% busy"
+        + (", no device events traced: not measured" if busy == 0 else "")
+        + f") on {card}")
+    avgs = prof.key_averages()
+    sort = ("self_device_time_total" if avgs and hasattr(
+        avgs[0], "self_device_time_total") else "self_cuda_time_total")
+    log(avgs.table(sort_by=sort, row_limit=12, max_name_column_width=48))
+
+
 def run_scene(work: Path, scene: np.ndarray, dev, card):
     """Phase 6a: bench.py's j2k_device_tiled1024 scene row through the
     port's CLI on CUDA; returns (K1, K2) launch counts of the row."""
@@ -724,7 +781,7 @@ def run_scene(work: Path, scene: np.ndarray, dev, card):
     fs_table.launches = 0
     dwt97.launches = 0
     t0 = time.perf_counter()
-    res = run_codec_main(argv + ["--outdir", str(work / "runsS")])
+    res = run_codec(argv + ["--outdir", str(work / "runsS")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = fs_table.launches, dwt97.launches
@@ -757,22 +814,7 @@ def run_scene(work: Path, scene: np.ndarray, dev, card):
     log(f"[scene] row wall {wall:.2f} s, phases {res['phases']} on {card}")
 
     # the row again, traced, for its device-busy share
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_codec_main(argv + ["--outdir", str(work / "runsS2")])
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    busy = busy_ms(prof)
-    log(f"[scene] traced row wall {traced:.2f} s, device busy {busy:.1f} ms "
-        f"({100.0 * busy / (1000.0 * traced):.2f}% busy"
-        + (", no device events traced: not measured" if busy == 0 else "")
-        + f") on {card}")
-    avgs = prof.key_averages()
-    sort = ("self_device_time_total" if avgs and hasattr(
-        avgs[0], "self_device_time_total") else "self_cuda_time_total")
-    log(avgs.table(sort_by=sort, row_limit=12, max_name_column_width=48))
+    traced_sweep("scene", argv + ["--outdir", str(work / "runsS2")], card)
 
     # the right-hand 2000×1808 crop, every tile shape: card == plain CPU
     crop = np.ascontiguousarray(scene[:, :, 8 * SCENE_TILE:])
@@ -839,7 +881,7 @@ def run_device_ladder(work: Path, tiles, card):
     fs_table.launches = 0
     dwt97.launches = 0
     t0 = time.perf_counter()
-    res = run_codec_main([
+    res = run_codec([
         "--indices", str(idx), "--codec", "j2k", "--entropy", "device",
         "--rate-key", "quality", "--rates", *map(str, RATES_A),
         "--reps", "3", "--outdir", str(work / "runsD"), "--device", "cuda"])
@@ -861,7 +903,7 @@ def run_device_ladder(work: Path, tiles, card):
             raise AssertionError(f"bad row {r}")
 
     t0 = time.perf_counter()
-    cpu = J2KCodec(entropy="device").sweep_qualities(tiles["HC"],
+    cpu = J2KCodec(entropy="device").sweep_qualities(tiles["HC"], "uint16",
                                                      QUALITIES_HELD)
     cpu_s = time.perf_counter() - t0
     for q, want in zip(QUALITIES_HELD, cpu):
@@ -1136,7 +1178,7 @@ def run_ccsds123(work: Path, cube: np.ndarray, dev, card, anchor_bytes: int):
     torch.cuda.reset_peak_memory_stats()
     fs_table.launches = 0
     t0 = time.perf_counter()
-    res = run_codec_main(argv + ["--reps", "3", "--outdir",
+    res = run_codec(argv + ["--reps", "3", "--outdir",
                                  str(work / "runs123")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1198,7 +1240,7 @@ def run_ccsds123(work: Path, cube: np.ndarray, dev, card, anchor_bytes: int):
     idx16 = write_caseb_index(work, np.ascontiguousarray(u16), "caseB_u16")
     for tag, extra in (("whole", []), ("tiled", ["--tile", "64"])):
         out = work / f"runs123u16{tag}"
-        r16 = run_codec_main(["--indices", str(idx16), "--codec", "ccsds123",
+        r16 = run_codec(["--indices", str(idx16), "--codec", "ccsds123",
                               "--rate-key", "none", "--reps", "1", "--outdir",
                               str(out), "--device", "cuda", *extra])
         (row,) = r16["rows"]
@@ -1213,23 +1255,8 @@ def run_ccsds123(work: Path, cube: np.ndarray, dev, card, anchor_bytes: int):
     ccsds123_stages(cube, dev, card)
 
     # one more rep, traced, for its device-busy share
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_codec_main(argv + ["--reps", "1", "--outdir",
-                               str(work / "runs123t")])
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    busy = busy_ms(prof)
-    log(f"[ccsds123] traced one-rep sweep wall {traced:.2f} s, device busy "
-        f"{busy:.1f} ms ({100.0 * busy / (1000.0 * traced):.2f}% busy"
-        + (", no device events traced: not measured" if busy == 0 else "")
-        + f") on {card}")
-    avgs = prof.key_averages()
-    sort = ("self_device_time_total" if avgs and hasattr(
-        avgs[0], "self_device_time_total") else "self_cuda_time_total")
-    log(avgs.table(sort_by=sort, row_limit=12, max_name_column_width=48))
+    traced_sweep("ccsds123", argv + ["--reps", "1", "--outdir",
+                                     str(work / "runs123t")], card)
     return k1
 
 
@@ -1260,6 +1287,382 @@ def run_host_codecs(work: Path, cube: np.ndarray, card):
         log(f"[host codecs] {name}: {row['bitstream_bytes']} B, max|err| "
             f"{err}, t_comp_s {row['t_comp_s']}, t_dec_s {row['t_dec_s']}; "
             f"wall {wall:.2f} s on {card}")
+
+
+def rate_dir(out: Path, tid: str, key: str, rate) -> Path:
+    """The runner's rep 1 directory of one (tile, rate) point."""
+    (r,) = runner._normalize_rates(key, [rate])
+    return out / tid / runner.rate_slug(key, r) / "rep_01"
+
+
+def kept_streams(run_dir: Path) -> dict:
+    """{name: bytes} of a run directory's kept streams."""
+    return {f.name: f.read_bytes()
+            for f in sorted((run_dir / "bit").iterdir())}
+
+
+def ccsds122_budgets(tile: np.ndarray):
+    codec = CCSDS122Codec()
+    return [codec.budget_for(RateSpec.of("bpp", float(r)), *tile.shape,
+                             "uint16")[1] for r in RATES_122]
+
+
+def ccsds122_model_bytes(tile: np.ndarray, dev, entropy: str) -> np.ndarray:
+    """(rates, bands) stream bytes of RATES_122 from the device models
+    alone, as the codec calls them."""
+    B, H, W = tile.shape
+    c = ccsds122_codec._consts(H, W, dev)
+    work = torch.from_numpy(tile.astype(np.int32)).to(dev)
+    budgets = ccsds122_budgets(tile)
+    if entropy == "bpe":
+        _, nbytes, _ = ccsds122_codec._bpe_ladder_device(
+            work, c.gather, c.wexp, budgets)
+        return nbytes.cpu().numpy()
+    _, nbytes, _ = ccsds122_codec._analyze_ladder_device(
+        work, c.order, budgets[:-1], c.wmap, True)
+    shift = ccsds122_codec.trailing_zero_shift(tile)
+    _, sizes = ccsds122_codec._lossless_analyze_device(
+        work, c.order, c.segb, shift, c.rle)
+    return np.concatenate([nbytes.cpu().numpy(),
+                           sizes.cpu().numpy()[None] + 1])
+
+
+def decode_ccsds122(streams: dict, tile: np.ndarray, entropy: str,
+                    lossless: bool) -> np.ndarray:
+    """The host decode of one point's kept streams: the native coders'
+    decoders, the weights divided out, the inverse 9/7M on the CPU."""
+    B, H, W = tile.shape
+    names = sorted(streams)
+    if entropy == "bpe":
+        planes = np.stack([bpe122.decode_plane(streams[n], H, W)
+                           for n in names])
+        shift = 0
+    else:
+        order = wc.scan_order(H, W, 3)
+        segb = wc.subband_seg_bounds(H, W, 3)
+        planes = np.empty((B, H * W), np.int32)
+        shift = 0
+        for b, n in enumerate(names):
+            s = streams[n]
+            if lossless:
+                shift = s[0]
+                planes[b, order] = wc.wenc_decode(s[1:], H * W, segb)
+            else:
+                planes[b, order] = wc.bpc_decode(s, H * W)
+        planes = planes.reshape(B, H, W)
+        if not lossless:
+            wmap = ccsds122_codec.subband_weight_map(H, W)
+            planes = np.rint(planes.astype(np.float32) / wmap) \
+                .astype(np.int32)
+    rec = idwt2(torch.from_numpy(planes), "97m", 3) << shift
+    return rec.clamp(0, 65535).numpy().astype(np.uint16)
+
+
+def run_ccsds122(work: Path, tiles, dev, card, entropy: str):
+    """Phases 8a and 8b: the CCSDS-122 rate ladder of one entropy backend
+    through the port's CLI on CUDA; returns K1's launch count."""
+    idx = write_index(work, tiles, f"c122{entropy}")
+    out = work / f"runs122{entropy}"
+    argv = ["--indices", str(idx), "--codec", "ccsds122", "--entropy",
+            entropy, "--rate-key", "bpp", "--rates", *RATES_122, "--reps",
+            "1", "--keep-bitstream", "--device", "cuda"]
+    tag = f"ccsds122 {entropy}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs_table.launches = 0
+    t0 = time.perf_counter()
+    res = run_codec(argv + ["--outdir", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fs_table.launches
+    # the Rice candidates of the embedded backend's lossless point: dense,
+    # sparse and split, once a tile
+    want_k1 = 3 * len(tiles) if entropy == "embedded" else 0
+    if k1 != want_k1:
+        raise AssertionError(f"{tag}: K1 launched {k1} times, expected "
+                             f"{want_k1}")
+    rows = read_rows(out / "metrics.csv")
+    if len(rows) != len(RATES_122) * len(tiles):
+        raise AssertionError(f"{tag}: {len(rows)} rows")
+
+    for tid, tile in tiles.items():
+        model_bytes = ccsds122_model_bytes(tile, dev, entropy)
+        budgets = ccsds122_budgets(tile)
+        trows = [r for r in rows if r["tile_id"] == tid]
+        last_bytes, last_psnr = 0, -math.inf
+        for qi, (rate, row) in enumerate(zip(RATES_122, trows)):
+            if num(row["rate_value"]) != float(rate):
+                raise AssertionError(f"{tag} {tid}: row order {row}")
+            lossless = budgets[qi] == 0
+            streams = kept_streams(rate_dir(out, tid, "bpp", rate))
+            suffix = (".bpe" if entropy == "bpe"
+                      else ".bit" if lossless else ".wbit")
+            if sorted(streams) != [f"b{b + 1:02d}{suffix}"
+                                   for b in range(tile.shape[0])]:
+                raise AssertionError(f"{tag} {tid} {rate}: streams "
+                                     f"{sorted(streams)}")
+            lens = [len(streams[n]) for n in sorted(streams)]
+            if lens != model_bytes[qi].tolist():
+                raise AssertionError(
+                    f"{tag} {tid} {rate} bpp: kept streams {lens} B, the "
+                    f"device model {model_bytes[qi].tolist()} B")
+            nbytes = int(row["bitstream_bytes"])
+            if nbytes != sum(lens):
+                raise AssertionError(f"{tag} {tid} {rate}: CSV bytes")
+            if not lossless and max(lens) > budgets[qi]:
+                raise AssertionError(f"{tag} {tid} {rate}: a stream of "
+                                     f"{max(lens)} B over {budgets[qi]} B")
+            is_lossless = (row["lossless"], row["max_abs_err"]) == ("1", "0")
+            if is_lossless != lossless:
+                raise AssertionError(f"{tag} {tid} {rate}: lossless {row}")
+            psnr = num(row["psnr_global"])
+            if not (nbytes > last_bytes and psnr > last_psnr):
+                raise AssertionError(
+                    f"{tag} {tid}: bytes or PSNR do not rise at {rate} bpp: "
+                    f"{nbytes} B after {last_bytes}, {psnr} after {last_psnr}")
+            last_bytes, last_psnr = nbytes, psnr
+            with tiff.open(rate_dir(out, tid, "bpp", rate)
+                           / "recon.tif") as ds:
+                recon = ds.read()
+            if lossless and not np.array_equal(recon, tile):
+                raise AssertionError(f"{tag} {tid}: recon.tif != tile")
+            if tid == "HC" or lossless:
+                if not np.array_equal(decode_ccsds122(streams, tile, entropy,
+                                                      lossless), recon):
+                    raise AssertionError(f"{tag} {tid} {rate} bpp: host "
+                                         f"decode of the kept streams != "
+                                         f"recon.tif")
+            log(f"[{tag}] {tid} {rate} bpp: {nbytes} B {lens}, psnr "
+                f"{row['psnr_global']}, t_comp_s {row['t_comp_s']}, t_dec_s "
+                f"{row['t_dec_s']}")
+
+    # the HC tile on the CPU: bytes, streams and recons
+    t0 = time.perf_counter()
+    want = CCSDS122Codec(entropy).sweep_rates(
+        tiles["HC"], "uint16",
+        [RateSpec.of("bpp", float(r)) for r in RATES_122_HELD],
+        keep_bitstream=True)
+    cpu_s = time.perf_counter() - t0
+    for rate, w in zip(RATES_122_HELD, want):
+        d = rate_dir(out, "HC", "bpp", rate)
+        if kept_streams(d) != w.bitstreams:
+            raise AssertionError(f"{tag} HC {rate} bpp: streams on the card "
+                                 f"!= the CPU run's")
+        with tiff.open(d / "recon.tif") as ds:
+            if not np.array_equal(ds.read(), w.recon.numpy()):
+                raise AssertionError(f"{tag} HC {rate} bpp: CUDA recon != "
+                                     f"CPU recon")
+    log(f"[{tag}] every kept stream as long as the device model says; host "
+        f"decode of the kept streams == recon.tif; HC at {RATES_122_HELD} "
+        f"bpp: CUDA streams and recons == plain CPU (CPU {cpu_s:.1f} s)")
+    log(f"[{tag}] sweep wall {wall:.2f} s, phases {res['phases']}, {k1} K1 "
+        f"launches, hbm peak {rows[-1].get('hbm_peak_mb')} MiB (process "
+        f"peak, reset before the sweep) on {card}")
+    return k1
+
+
+def ccsds122_stages(tile: np.ndarray, dev, card):
+    """The stages of phase 8a's codec work on one tile, each synchronized
+    on the host clock; the second pass is reported."""
+    B, H, W = tile.shape
+    c = ccsds122_codec._consts(H, W, dev)
+    budgets = ccsds122_budgets(tile)
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for _ in range(2):
+        t = {}
+        dc, t["upload"] = lap(lambda: torch.from_numpy(tile).to(dev))
+        work, t["work"] = lap(lambda: device_work(
+            tile, {"device_cube": dc}, 8, torch.int32))
+        coefs, t["9/7M dwt"] = lap(lambda: dwt2(work, "97m", 3))
+        blocks, t["weights + gather"] = lap(
+            lambda: (coefs << c.wexp[None]).reshape(B, -1)[:, c.gather])
+        layout, t["bpe layout"] = lap(
+            lambda: bpe122_model.bpe_stream_layout(blocks))
+        recs, t_dec, t_syn, t_host = [], [], [], []
+        for budget in budgets:
+            (rec, _), s = lap(lambda: bpe122_model.bpe_decode_at(layout,
+                                                                 budget))
+            t_dec.append(s)
+            recs.append(rec)
+        del layout
+        for rec in recs:
+            _, s = lap(lambda: ccsds122_codec._bpe_synthesize_device(
+                rec, c.scatter, c.wexp, H, W, H, W, torch.uint16, 0, 65535))
+            t_syn.append(s)
+        del recs
+        host, t["blocks to host"] = lap(lambda: blocks.cpu().numpy())
+        for budget in budgets:
+            _, s = lap(lambda: [bpe122.bpe_encode_blocks(
+                host[b], seg_byte_limit=budget, img_width=W,
+                pixel_bitdepth=16) for b in range(B)])
+            t_host.append(s)
+        perm, t["embedded: scan order"] = lap(
+            lambda: (coefs * c.wmap[None]).reshape(B, -1)[:, c.order])
+        elayout, t["embedded: layout"] = lap(
+            lambda: ccsds122_codec.bm.bpc_stream_layout(perm))
+        _, t["embedded: decode, one budget"] = lap(
+            lambda: ccsds122_codec.bm.bpc_decode_at(elayout, budgets[1]))
+        del elayout, perm, blocks, coefs, work, dc
+    ms = lambda v: "/".join(f"{1e3 * x:.1f}" for x in v)
+    log("[ccsds122] stages of the HC tile, second pass (host clock, "
+        "synchronized): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in t.items())
+        + f"; per budget {RATES_122} bpp: bpe decode {ms(t_dec)} ms, "
+          f"synthesis {ms(t_syn)} ms, host BPE coder (4 bands) "
+          f"{ms(t_host)} ms on {card}")
+
+
+def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
+    """Phase 8c: the J2K device mode with kept streams through the port's
+    CLI on CUDA, whole tile and tiled; returns the (K1, K2) launch counts
+    of the two sweeps."""
+    B, H, W = tile.shape
+    counts = []
+    runs = [("HC", tile, [str(q) for q in QUALITIES_KEPT], []),
+            ("crop", crop, ["40"], ["--tilex", str(SCENE_TILE), "--tiley",
+                                    str(SCENE_TILE)])]
+    for tid, cube, rates, extra in runs:
+        idx = write_index(work, {tid: cube}, f"kept{tid}")
+        out = work / f"runsK{tid}"
+        fs_table.launches = 0
+        dwt97.launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = run_codec([
+                "--indices", str(idx), "--codec", "j2k", "--entropy",
+                "device", "--rate-key", "quality", "--rates", *rates,
+                "--reps", "1", "--keep-bitstream", "--outdir", str(out),
+                "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1, k2 = fs_table.launches, dwt97.launches
+        bad = [str(w.message) for w in caught
+               if "checksum" in str(w.message)]
+        if bad:
+            raise AssertionError(f"[j2k kept] {tid}: {bad}")
+        shapes = tile_counts(*cube.shape[1:], SCENE_TILE if extra else 1 << 20)
+        n_tiles = sum(shapes.values())
+        # a DWT for the whole tile's ladder, or one a tile and point; three
+        # Rice sizes a tile and point
+        want_k2 = sum(n * len(plan(th + (-th) % 32, tw + (-tw) % 32, 5))
+                      for (th, tw), n in shapes.items()) * \
+            (len(rates) if extra else 1)
+        want_k1 = 3 * n_tiles * len(rates)
+        if (k1, k2) != (want_k1, want_k2):
+            raise AssertionError(f"[j2k kept] {tid}: K1 {k1}, K2 {k2} "
+                                 f"launches, expected {want_k1}, {want_k2}")
+        rows = read_rows(out / "metrics.csv")
+
+        t0 = time.perf_counter()
+        want = J2KCodec(entropy="device", **(
+            {"tilex": SCENE_TILE, "tiley": SCENE_TILE} if extra else {})
+        ).sweep_rates(cube, "uint16",
+                      [RateSpec.of("quality", int(q)) for q in rates],
+                      keep_bitstream=True)
+        cpu_s = time.perf_counter() - t0
+        for q, row, w in zip(rates, rows, want):
+            d = rate_dir(out, tid, "quality", q)
+            streams = kept_streams(d)
+            if len(streams) != n_tiles * B or streams != w.bitstreams:
+                raise AssertionError(f"[j2k kept] {tid} q={q}: streams on "
+                                     f"the card != the CPU run's")
+            if int(row["bitstream_bytes"]) != sum(map(len, streams.values())):
+                raise AssertionError(f"[j2k kept] {tid} q={q}: CSV bytes")
+            with tiff.open(d / "recon.tif") as ds:
+                recon = ds.read()
+            if not np.array_equal(recon, w.recon.numpy()):
+                raise AssertionError(f"[j2k kept] {tid} q={q}: CUDA recon "
+                                     f"!= CPU recon")
+            if not extra:
+                # decode(stream), dequantized and inverse transformed
+                c = j2k_codec._PricingConsts(H, W, torch.device("cpu"))
+                qc = np.empty((B, H * W), np.int32)
+                for b, name in enumerate(sorted(streams)):
+                    qc[b, c.order_host] = wc.wenc_decode(streams[name],
+                                                         H * W, c.segbounds)
+                peak = float(np.abs(cube.astype(np.float64)).max())
+                base = np.float32(j2k_codec.base_step_for_quality(int(q),
+                                                                  peak))
+                back = j2k_codec._device_recon(
+                    torch.from_numpy(qc.reshape(B, H, W)), c.scale, base, 5,
+                    H, W, 0, 65535, torch.uint16)
+                if not np.array_equal(back.numpy(), recon):
+                    raise AssertionError(f"[j2k kept] {tid} q={q}: "
+                                         f"decode(stream) != recon.tif")
+            log(f"[j2k kept] {tid} q={q}: {row['bitstream_bytes']} B in "
+                f"{len(streams)} streams, psnr {row['psnr_global']}, "
+                f"t_comp_s {row['t_comp_s']}, t_dec_s {row['t_dec_s']}")
+        log(f"[j2k kept] {tid} {cube.shape}: no checksum warning; kept "
+            f"streams and recons == plain CPU (CPU {cpu_s:.1f} s); sweep "
+            f"wall {wall:.2f} s, phases {res['phases']}, {k1} K1 and {k2} "
+            f"K2 launches on {card}")
+        counts.append((k1, k2))
+    return counts
+
+
+def run_ccsds122_caseb(work: Path, cube: np.ndarray, card):
+    """Phase 8d: one CCSDS-122 BPE point on the 180-band Case B tile."""
+    idx = write_caseb_index(work, cube, "caseB_122")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_codec(["--indices", str(idx), "--codec", "ccsds122",
+                     "--rate-key", "bpp", "--rates", "2", "--reps", "1",
+                     "--no-artifacts", "--outdir", str(work / "runs122B"),
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (row,) = read_rows(work / "runs122B" / "metrics.csv")
+    B, H, W = cube.shape
+    budget = int(2.0 * H * W / 8.0)
+    nbytes = int(row["bitstream_bytes"])
+    if not (0 < nbytes <= B * budget) or row["lossless"] != "0" \
+            or not math.isfinite(num(row["psnr_global"])):
+        raise AssertionError(f"[ccsds122 caseB] {row}")
+    group = ccsds122_codec.band_group(
+        B, (H // 8) * (W // 8) * bpe122_model.LAYOUT_BYTES_PER_BLOCK,
+        torch.device("cuda"))
+    log(f"[ccsds122 caseB] {cube.shape} at 2 bpp: {nbytes} B of a "
+        f"{B * budget} B budget, psnr {row['psnr_global']}, t_comp_s "
+        f"{row['t_comp_s']}, t_dec_s {row['t_dec_s']}; wall {wall:.2f} s, "
+        f"phases {res['phases']}, hbm_peak_mb {row.get('hbm_peak_mb')} "
+        f"(process peak, reset before the sweep; bands in groups of up to "
+        f"{group} now) on {card}")
+
+
+def run_phase8(tiles, cube, dev, card):
+    """Phase 8; returns its launch counts by path."""
+    t8 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        work = Path(tmp)
+        bpe_k1 = run_ccsds122(work, tiles, dev, card, "bpe")
+        ccsds122_stages(tiles["HC"], dev, card)
+        idx = write_index(work, tiles, "c122bpe")
+        traced_sweep("ccsds122 bpe", [
+            "--indices", str(idx), "--codec", "ccsds122", "--rate-key",
+            "bpp", "--rates", *RATES_122, "--reps", "1", "--keep-bitstream",
+            "--outdir", str(work / "runs122t"), "--device", "cuda"], card)
+        emb_k1 = run_ccsds122(work, tiles, dev, card, "embedded")
+        crop = np.ascontiguousarray(make_scene(
+            np.random.default_rng(2026))[:, :, 8 * SCENE_TILE:])
+        (kept_k1, kept_k2), (tiled_k1, tiled_k2) = run_j2k_kept(
+            work, tiles["HC"], crop, dev, card)
+        run_ccsds122_caseb(work, cube, card)
+    log(f"[ccsds122] phase 8 in {time.perf_counter() - t8:.1f} s")
+    return {"k1": {"ccsds122_bpe": bpe_k1,
+                   "ccsds122_embedded_lossless": emb_k1,
+                   "j2k_device_kept": kept_k1,
+                   "j2k_device_kept_tiled": tiled_k1},
+            "k2": {"j2k_device_kept": kept_k2,
+                   "j2k_device_kept_tiled": tiled_k2}}
 
 
 def main():
@@ -1334,6 +1737,9 @@ def main():
     log(f"[caseB codecs] phase 7 in {time.perf_counter() - t7:.1f} s, "
         f"{scans['n']} clamp scans (one per packed chunk)")
 
+    # phase 8: CCSDS-122 and the kept streams of the J2K device mode
+    p8 = run_phase8(tiles, cube, dev, card)
+
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
     if jax_loaded:
@@ -1368,12 +1774,12 @@ def main():
                "device_rate_fit": fit_k1,
                "packer_anchor_stream": pack_anchor_k1,
                "packer_mapped_residuals": pack_mapped_k1,
-               "ccsds123_sweep": c123_k1}),
+               "ccsds123_sweep": c123_k1, **p8["k1"]}),
         entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
               "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
               (32, 1024, 1024),
               {"caseA_ebcot": k2_launches, "scene_row": scene_k2,
-               "device_ladder": ladder_k2})]}
+               "device_ladder": ladder_k2, **p8["k2"]})]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 """The lossless codecs of Case B as whole sweeps on the CPU: tpukit's
 run_sweep and tpukit_torch's on the same small Case B tile for CCSDS-123
 (``standard``; ``ls`` with tpukit's fitted weights injected into the port),
-JPEG-LS (lossless, diff1, a near-lossless point, a cr point) and PNG.
+JPEG-LS (lossless, diff1, a near-lossless point, a cr point), PNG and
+CCSDS-122 (both entropy backends, a bpp ladder with its effective-lossless
+point, and no rate key).
 
 metrics.csv and metrics_mean.csv must be equal column by column, leaving
 out the wall-clock columns (t_*, except the modelled t_link_tile_s) and the
@@ -122,6 +124,13 @@ SWEEPS = {
     "jpegls_near": ("jpegls", {}, "nearlossless_eps", [1, 3], ".jls"),
     "jpegls_cr_bpp": ("jpegls", {}, "cr", [3, 8], ".jls"),
     "png": ("png", dict(zlevel=4), "none", None, ".png"),
+    "ccsds122_bpe": ("ccsds122", {}, "bpp", [1, 4, 16], ".bpe"),
+    "ccsds122_bpe_lossless": ("ccsds122_ext", dict(entropy="bpe"), "none",
+                              None, ".bpe"),
+    "ccsds122_embedded": ("ccsds122", dict(entropy="embedded"), "bpp",
+                          [0.5, 2, 16], ".wbit"),
+    "ccsds122_embedded_cr": ("ccsds122", dict(entropy="embedded"), "cr",
+                             [1, 4], ".bit"),
 }
 
 

@@ -100,8 +100,14 @@ def test_kernel_constants_are_the_plain_versions():
 
 
 def test_other_kinds_and_sizes_raise():
+    """Every kind tpukit has runs (the 9/7M too, held to tpukit's in
+    tests/test_torch_dwt97m.py); an unknown one and a size off the level
+    grid raise."""
     x = torch.zeros((1, 64, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdwt.dwt2(x, "97m", 3)
+    for kind in sorted(jdwt._FWD):
+        assert tuple(tdwt.dwt2(x, kind, 3).shape) == (1, 64, 64)
+    assert sorted(tdwt._FWD) == sorted(jdwt._FWD)
+    with pytest.raises(ValueError, match="97m"):
+        tdwt.dwt2(x, "haar", 3)
     with pytest.raises(ValueError, match="divisible"):
         tdwt.dwt2(torch.zeros((1, 48, 64)), "97", 5)

@@ -170,15 +170,19 @@ def test_codec_flags_equal_tpukit():
 
 
 def test_registry_names_and_refusals():
-    """Five codecs and tpukit's reference labels resolve; CCSDS-122 is
-    refused with its ROADMAP item; an unknown name lists what is known."""
+    """tpukit's six codecs and its reference labels resolve, none is
+    refused any more; an unknown name lists what is known."""
     from tpukit.codecs import registry as jreg
     from tpukit_torch.codecs import registry as treg
-    assert treg.names() == ["ccsds121", "ccsds123", "j2k", "jpegls", "png"]
+    assert treg.names() == ["ccsds121", "ccsds122", "ccsds123", "j2k",
+                            "jpegls", "png"]
+    assert treg.names() == jreg.names()
     assert treg._ALIASES == jreg._ALIASES
-    for label in ("ccsds123_ext", "jpegls_subproc", "png_lossless"):
+    for label in list(treg._ALIASES) + treg.names():
         assert type(create(label)).__name__ == type(jreg.create(label)).__name__
-    with pytest.raises(NotImplementedError, match="item 15"):
-        create("ccsds122")
-    with pytest.raises(KeyError, match="ccsds123.*jpegls.*png"):
+    for entropy in ("bpe", "embedded"):
+        assert create("ccsds122", entropy=entropy).entropy == entropy
+    with pytest.raises(ValueError, match="bpe|embedded"):
+        create("ccsds122", entropy="ebcot")
+    with pytest.raises(KeyError, match="ccsds122.*ccsds123.*jpegls.*png"):
         create("webp")

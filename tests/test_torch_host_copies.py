@@ -3,10 +3,13 @@
 
 tpukit_torch keeps copies of the host code it needs (``io``, ``sweep.csvio``,
 ``sweep.proc``, ``viz.quicklooks``, ``native`` with its C++ sources, the
-codec API of ``codecs.base`` and the host codecs ``codecs.ccsds123_std``,
-``codecs.jpegls_codec`` and ``codecs.png_codec``) instead of importing
-tpukit. Here the copies are held to the originals as text (the package name
-in the imports apart, and ``decode_to_device``, which uploads with torch),
+codec API of ``codecs.base``, the host codecs ``codecs.ccsds123_std``,
+``codecs.jpegls_codec`` and ``codecs.png_codec``, the BPE bindings
+``codecs.bpe122`` and the host Rice / bit-plane / run-length coder inside
+``codecs.wavelet_common``) instead of importing tpukit. Here the copies are
+held to the originals as text (the package name in the imports apart, and
+``decode_to_device``, which uploads with torch; ``wavelet_common`` function
+by function, since the rest of that module is torch code),
 the same seeded inputs go through both packages: the writers give byte-equal
 files, the native library is built from the port's own sources and codes as
 tpukit's does, and chip_smoke.py's input recipes give bench.py's arrays.
@@ -19,6 +22,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from tpukit.codecs import bpe122 as j_bpe
+from tpukit.codecs import wavelet_common as j_wc
 from tpukit.io import manifest as j_manifest
 from tpukit.io import tiff as j_tiff
 from tpukit.io.bitdepth import effective_data_range as j_range
@@ -26,6 +31,8 @@ from tpukit.native import ccsds121_host as j_ck
 from tpukit.sweep import csvio as j_csvio
 from tpukit.viz import quicklooks as j_ql
 from tpukit_torch import native
+from tpukit_torch.codecs import bpe122 as t_bpe
+from tpukit_torch.codecs import wavelet_common as t_wc
 from tpukit_torch.io import manifest as t_manifest
 from tpukit_torch.io import tiff as t_tiff
 from tpukit_torch.io.bitdepth import effective_data_range as t_range
@@ -47,6 +54,7 @@ def _load(name: str, path: Path):
 # name (and so in how an import statement wraps), and the function each
 # leaves to the port's own code
 COPIES = {
+    "codecs/bpe122.py": None,
     "codecs/ccsds123_std.py": None,
     "codecs/jpegls_codec.py": None,
     "codecs/png_codec.py": None,
@@ -80,6 +88,139 @@ def test_copied_sources_equal_tpukit(rel):
     assert "# The port's copy of tpukit/" + rel in port.read_text()
     assert _source(port, COPIES[rel]) == \
         _source(REPO / "tpukit" / rel, COPIES[rel])
+
+
+# the host coder's functions, copied by hand into the port's
+# codecs/wavelet_common.py, and the constants they read
+HOST_CODER = [
+    "scan_order", "inverse_scan_order", "pad_to_multiple", "_rle_cap_bits",
+    "subband_seg_bounds", "_rle_model_consts",
+    "_tls_buf", "bpc_encode", "bpc_encode_quant_ck", "bpc_encode_quant",
+    "bpc_decode", "_fits_rice", "_seg_lens", "rle_size_host", "rle_encode",
+    "rle_decode", "_rice_cfg", "_rice_header", "_zigzag32", "_split_s",
+    "split_encode", "split_decode", "split_size_host", "zigzag_np",
+    "unzigzag_np", "wenc_encode", "wenc_decode", "wenc_quant_encode_ck"]
+HOST_CODER_CONSTS = ["RICE_MARK", "RICE_BITS", "RICE_J", "RICE_RSI",
+                     "RICE_J_SPARSE", "RICE_RSI_SPARSE", "RLE_MARK",
+                     "RLE_CAP_BITS", "SPLIT_FLAG"]
+
+
+def _function_source(path: Path, name: str) -> str:
+    m = re.search(r"^def %s\(.*?(?=^\S|\Z)" % re.escape(name),
+                  path.read_text(), flags=re.S | re.M)
+    assert m, (path, name)
+    text = m.group(0).replace("tpukit_torch", "tpukit")
+    text = text.replace("dwtk.subband_slices", "subband_slices")
+    # the port's copies may carry a docstring where tpukit has none
+    return " ".join(text.split())
+
+
+@pytest.mark.parametrize("name", HOST_CODER)
+def test_host_coder_function_is_tpukits_text(name):
+    port = _function_source(
+        REPO / "tpukit_torch" / "codecs" / "wavelet_common.py", name)
+    orig = _function_source(
+        REPO / "tpukit" / "codecs" / "wavelet_common.py", name)
+    if name == "pad_to_multiple":       # the port's copy adds a docstring
+        port = re.sub(r'""".*?""" ', "", port)
+    assert port == orig
+
+
+def test_host_coder_constants_equal_tpukit():
+    for name in HOST_CODER_CONSTS:
+        assert getattr(t_wc, name) == getattr(j_wc, name), name
+
+
+def _coefficient_regimes(rng, n=4096):
+    dense = rng.integers(-300, 301, n) * (rng.random(n) < 0.9)
+    sparse = rng.integers(-50, 51, n) * (rng.random(n) < 0.01)
+    wide = rng.integers(-(1 << 20), 1 << 20, n) * (rng.random(n) < 0.5)
+    mid = rng.integers(-40000, 40001, n) * (rng.random(n) < 0.4)
+    extreme = wide.copy()
+    extreme[:4] = [-(1 << 31), (1 << 31) - 1, 1 << 30, -(1 << 30)]
+    return {"dense": dense, "sparse": sparse, "wide": wide, "mid": mid,
+            "extreme": extreme, "zeros": np.zeros(n, np.int64),
+            "odd_length": dense[:1000]}
+
+
+@pytest.mark.parametrize("regime", ["dense", "sparse", "wide", "mid",
+                                    "extreme", "zeros", "odd_length"])
+def test_host_coder_streams_equal_tpukit(regime):
+    """Every backend of the host coder, both packages' bindings over their
+    own native libraries: byte-equal streams that decode to the input in
+    either package."""
+    rng = np.random.default_rng(17)
+    qc = _coefficient_regimes(rng)[regime].astype(np.int32)
+    n = qc.size
+    segb = t_wc.subband_seg_bounds(64, 64, 3) if n == 4096 else None
+    assert segb == (j_wc.subband_seg_bounds(64, 64, 3) if n == 4096 else None)
+    stream = t_wc.wenc_encode(qc, segbounds=segb)
+    assert stream == j_wc.wenc_encode(qc, segbounds=segb)
+    for dec in (t_wc.wenc_decode, j_wc.wenc_decode):
+        np.testing.assert_array_equal(dec(stream, n, segb), qc)
+    for budget in (0, 1, 40, 700):
+        s = t_wc.bpc_encode(qc, budget)
+        assert s == j_wc.bpc_encode(qc, budget)
+        if budget:                      # a budget forces this backend
+            assert t_wc.wenc_encode(qc, budget) == s
+        np.testing.assert_array_equal(t_wc.bpc_decode(s, n),
+                                      j_wc.bpc_decode(s, n))
+    if t_wc._fits_rice(qc):
+        s = t_wc.rle_encode(qc, segb)
+        assert s == j_wc.rle_encode(qc, segb)
+        assert len(s) == t_wc.rle_size_host(qc, segb) == \
+            j_wc.rle_size_host(qc, segb)
+        np.testing.assert_array_equal(t_wc.rle_decode(s[1:], n, segb), qc)
+    if n % t_wc.RICE_J == 0:
+        s = t_wc.split_encode(qc)
+        assert s == j_wc.split_encode(qc)
+        assert len(s) == t_wc.split_size_host(qc) == j_wc.split_size_host(qc)
+        np.testing.assert_array_equal(t_wc.split_decode(s, n), qc)
+    assert t_wc._rice_cfg(qc) == j_wc._rice_cfg(qc)
+    np.testing.assert_array_equal(t_wc._zigzag32(qc), j_wc._zigzag32(qc))
+
+
+@pytest.mark.parametrize("inv_base", [1.0, 0.37, 1e-3, 40.0])
+def test_fused_quantize_encode_equals_tpukit(inv_base):
+    rng = np.random.default_rng(23)
+    segb = t_wc.subband_seg_bounds(64, 64, 3)
+    for n in (4096, 1000):
+        coefs = (rng.laplace(0, 900, n)).astype(np.float32)
+        inv_steps = rng.uniform(0.05, 2.0, n).astype(np.float32)
+        sb = segb if n == 4096 else None
+        got = t_wc.wenc_quant_encode_ck(coefs, inv_steps, np.float32(inv_base),
+                                        segbounds=sb)
+        want = j_wc.wenc_quant_encode_ck(coefs, inv_steps,
+                                         np.float32(inv_base), segbounds=sb)
+        assert got[0] == want[0] and got[2:] == want[2:]
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(
+            got[1], np.trunc(coefs * (inv_steps * np.float32(inv_base)))
+            .astype(np.int32))
+        np.testing.assert_array_equal(t_wc.wenc_decode(got[0], n, sb), got[1])
+        bs, qc = t_wc.bpc_encode_quant(coefs, inv_steps, np.float32(inv_base))
+        jbs, jqc = j_wc.bpc_encode_quant(coefs, inv_steps,
+                                         np.float32(inv_base))
+        assert bs == jbs
+        np.testing.assert_array_equal(qc, jqc)
+
+
+def test_bpe_bindings_equal_tpukit():
+    rng = np.random.default_rng(29)
+    for Hp, Wp in ((16, 16), (24, 40)):
+        for a, b in zip(t_bpe.block_indices(Hp, Wp),
+                        j_bpe.block_indices(Hp, Wp)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(t_bpe.weight_exp_map(Hp, Wp),
+                                      j_bpe.weight_exp_map(Hp, Wp))
+        plane = rng.integers(-3000, 3000, (Hp, Wp)).astype(np.int32)
+        for limit in (0, 64, 300):
+            s = t_bpe.encode_plane(plane, limit, img_width=Wp)
+            assert s == j_bpe.encode_plane(plane, limit, img_width=Wp)
+            np.testing.assert_array_equal(t_bpe.decode_plane(s, Hp, Wp),
+                                          j_bpe.decode_plane(s, Hp, Wp))
+        np.testing.assert_array_equal(
+            t_bpe.decode_plane(t_bpe.encode_plane(plane), Hp, Wp), plane)
 
 
 def test_native_sources_equal_tpukit():

@@ -3,9 +3,11 @@
 
 A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
 small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
-the CPU), a small tiled J2K device-mode sweep and one sweep of each of the
-other lossless codecs (CCSDS-123 with both predictors, JPEG-LS lossless and
-near-lossless, PNG) through the port's CLI, in two conditions:
+the CPU), a small tiled J2K device-mode sweep, a device-mode sweep with
+kept streams, a CCSDS-122 rate ladder of each entropy backend with kept
+streams and one sweep of each of the other lossless codecs (CCSDS-123 with
+both predictors, JPEG-LS lossless and near-lossless, PNG) through the
+port's CLI, in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used. In both, no ``jax`` and no ``tpukit``
 module may end up loaded. A source scan backs it up: no file of the port,
@@ -39,8 +41,13 @@ if sys.argv[2] == "absent":
 
 import numpy as np
 import chip_smoke
-from tpukit_torch.cli.main import run_codec_main
+from tpukit_torch.cli.main import run_codec_config
+from tpukit_torch.cli.main import run_codec_main as cli_main
 from tpukit_torch.io import manifest, tiff
+from tpukit_torch.sweep.runner import run_sweep
+
+def run_codec_main(argv):
+    return run_sweep(run_codec_config(argv))
 
 out = sys.argv[1]
 rng = np.random.default_rng(7)
@@ -60,6 +67,17 @@ resA = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k",
 resT = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
                        "--rate-key", "quality", "--rates", "40", "--reps", "1",
                        "--tilex", "48", "--tiley", "48", "--outdir", f"{out}/runsT", "--device", "cpu"])
+resK = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
+                       "--rate-key", "quality", "--rates", "40", "100", "--reps", "1", "--keep-bitstream",
+                       "--outdir", f"{out}/runsK", "--device", "cpu"])
+res122 = {}
+for entropy in ("bpe", "embedded"):
+    r = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "ccsds122", "--entropy", entropy,
+                        "--rate-key", "bpp", "--rates", "1", "16", "--reps", "1", "--keep-bitstream",
+                        "--outdir", f"{out}/runs122{entropy}", "--device", "cpu"])
+    res122[entropy] = [row["lossless"] for row in r["rows"]]
+rc = cli_main(["--indices", f"{out}/idx.json", "--codec", "ccsds122_ext", "--reps", "1",
+               "--no-artifacts", "--outdir", f"{out}/runs122B", "--device", "cpu"])
 others = {}
 for tag, argv in {"ccsds123": ["--codec", "ccsds123", "--tile", "16"],
                   "ccsds123_standard": ["--codec", "ccsds123_ext", "--predictor", "standard",
@@ -71,7 +89,8 @@ for tag, argv in {"ccsds123": ["--codec", "ccsds123", "--tile", "16"],
     r = run_codec_main(["--indices", f"{out}/idx.json", "--reps", "1", "--keep-bitstream",
                         "--outdir", f"{out}/runs_{tag}", "--device", "cpu", *argv])
     others[tag] = [[row["lossless"], int(row["max_abs_err"])] for row in r["rows"]]
-print(json.dumps({"others": others,
+print(json.dumps({"others": others, "ccsds122": res122, "ccsds122_cli_rc": rc,
+                  "caseA_device_kept": [r["lossless"] for r in resK["rows"]],
                   "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "tpukit": sorted(m for m in sys.modules if m == "tpukit" or m.startswith("tpukit.")),
                   "lossless": [r["lossless"] for r in res["rows"]],
@@ -91,7 +110,9 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got == {"jax": [], "tpukit": [], "lossless": [1, 1], "caseA": [0, 0],
-                   "caseA_device_tiled": [0],
+                   "caseA_device_tiled": [0], "caseA_device_kept": [0, 0],
+                   "ccsds122": {"bpe": [0, 1], "embedded": [0, 1]},
+                   "ccsds122_cli_rc": 0,
                    "others": {"ccsds123": [[1, 0]], "ccsds123_standard": [[1, 0]],
                               "jpegls": [[1, 0]], "jpegls_near": [[0, 2]],
                               "png": [[1, 0]]}}

@@ -170,9 +170,11 @@ def test_port_lossless_sweep_equals_tpukit(tmp_path, casea_tiles):
                                        ({"tilex": 64}, "sweep"),
                                        ({"tiley": 32}, "run")])
 def test_what_is_not_ported_raises(rng, opts, spec):
-    """Device-mode streams (``keep_bitstream`` with ``entropy="device"``,
-    whole cubes and tiles) and the mesh sweep raise, naming their ROADMAP
-    items."""
+    """The mesh sweep raises, naming its ROADMAP item. Device-mode streams
+    (``keep_bitstream`` with ``entropy="device"``, whole cubes and tiles),
+    refused until the host coder was re-homed, are built: one per (tile,
+    band), as long together as the point's byte count, which is the
+    model-first run's, as is the recon."""
     from tpukit_torch.codecs.base import RateSpec
 
     cube = rng.integers(0, 4096, (4, 96, 160)).astype(np.uint16)
@@ -180,7 +182,18 @@ def test_what_is_not_ported_raises(rng, opts, spec):
     rate = RateSpec.of("quality", 40)
     call = codec.run if spec == "run" else codec.sweep_rates
     arg = rate if spec == "run" else [rate]
-    with pytest.raises(NotImplementedError, match="item 22"):
-        call(cube, "uint16", arg, keep_bitstream=True)
+    kept = call(cube, "uint16", arg, keep_bitstream=True)
+    model = call(cube, "uint16", arg)
+    if spec != "run":
+        (kept,), (model,) = kept, model
+    n_tiles = -(-160 // opts.get("tilex", 160)) * -(-96 // opts.get("tiley", 96))
+    assert len(kept.bitstreams) == 4 * n_tiles
+    assert sum(map(len, kept.bitstreams.values())) == kept.bitstream_bytes \
+        == model.bitstream_bytes
+    assert model.bitstreams is None
+    assert torch.equal(kept.recon, model.recon)
     with pytest.raises(NotImplementedError, match="item 21"):
         J2KCodec(**opts).sweep_rates(cube, "uint16", [rate], mesh=object())
+    with pytest.raises(NotImplementedError, match="item 21"):
+        codec.sweep_qualities(cube, "uint16", [40], False, None, None,
+                              object())

@@ -116,15 +116,39 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
 @pytest.mark.parametrize("extra", [["--mesh", "2"], ["--stream-rows", "64"],
                                    ["--profile", "prof"],
                                    ["--compressor-cmd", "aec"],
+                                   ["--compressor-cmd", "aec", "--", "-n",
+                                    "16"],
                                    ["--codec", "j2k", "--entropy", "device",
                                     "--keep-bitstream"],
                                    ["--codec", "ccsds122"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    """Options and codecs the port does not have yet raise, naming their
-    ROADMAP item, before any input is read."""
-    from tpukit_torch.cli.main import run_codec_main
+def test_cli_refuses_what_is_not_ported(tmp_path, caseb_tiles, extra):
+    """Options the port does not have yet raise, naming their ROADMAP
+    item, before any input is read; arguments after ``--`` reach that
+    refusal and not argparse's exit. What has been ported since (the
+    device mode's kept streams, CCSDS-122) runs the sweep and returns 0,
+    as tpukit's ``run_codec_main`` does."""
+    from tpukit.cli.main import run_codec_main as jax_run_codec
+    from tpukit_torch.cli.main import main, run_codec_main
 
     argv = ["--indices", str(tmp_path / "absent.json"), "--codec",
             "ccsds121", "--outdir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_codec_main(argv + extra)
+    if "--codec" not in extra:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run_codec_main(argv + extra)
+        return
+    argv = ["--indices", str(caseb_tiles), "--rate-key", "none", "--reps",
+            "1", "--no-artifacts", *extra]
+    got = run_codec_main(argv + ["--outdir", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    want = jax_run_codec(argv + ["--outdir", str(tmp_path / "jax")])
+    assert got == want == 0
+    _, rows = _read_csv(tmp_path / "port" / "metrics.csv")
+    _, jrows = _read_csv(tmp_path / "jax" / "metrics.csv")
+    assert [(r["tile_id"], r["bitstream_bytes"], r["lossless"])
+            for r in rows] == \
+        [(r["tile_id"], r["bitstream_bytes"], r["lossless"]) for r in jrows]
+    assert [r["lossless"] for r in rows] == ["1", "1"]
+    # the entry point hands the command's code on
+    assert main(["run-codec"] + argv + ["--outdir", str(tmp_path / "again"),
+                                        "--device", "cpu"]) == 0
+    assert main(["no-such-command"]) == 2

@@ -4,12 +4,18 @@
 ``python -m tpukit_torch run-codec ...`` is tpukit's sweep runner CLI
 (tpukit/cli/main.py:26-189, reference tools/run_codec.py:374-399) on a
 torch device, plus ``--device`` (default ``cuda``; an absent card is an
-error, not a fall back to the CPU). Codecs: ccsds121, ccsds123 (both
-predictors), jpegls, png and j2k; ccsds122 is refused with its ROADMAP
-item. Flags the port cannot honour yet
-(``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``, and
-``--keep-bitstream`` with ``--entropy device``) raise
-``NotImplementedError``.
+error, not a fall back to the CPU). Codecs: tpukit's six, ccsds121,
+ccsds122 (``--entropy bpe|embedded``), ccsds123 (both predictors), jpegls,
+png and j2k (``--entropy ebcot|device``), each with and without
+``--keep-bitstream``. Flags the port cannot honour yet
+(``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``) raise
+``NotImplementedError`` naming their ROADMAP item. Arguments the parser
+does not know (those after ``--``, for ``--compressor-cmd``) are left
+alone, as tpukit's ``parse_known_args`` leaves them.
+
+``run_codec_main`` returns 0 as tpukit's does; ``run_codec_config`` gives
+the ``SweepConfig`` of a command line for callers that want ``run_sweep``'s
+result dict.
 """
 
 from __future__ import annotations
@@ -19,17 +25,18 @@ import sys
 from pathlib import Path
 
 
-def run_codec_main(argv=None):
-    """Sweep runner CLI mirroring reference tools/run_codec.py:374-399."""
+def run_codec_config(argv=None):
+    """The ``SweepConfig`` of a ``run-codec`` command line (reference
+    tools/run_codec.py:374-399)."""
     ap = argparse.ArgumentParser(
         description="tpukit_torch codec runner: sweep codecs and collect "
                     "metrics per tile")
     ap.add_argument("--indices", required=True)
     ap.add_argument("--codec", required=True,
-                    help="codec name (ccsds121, ccsds123, jpegls, png or "
-                         "j2k) or its reference label (ccsds121_ext, "
-                         "ccsds123_ext, jpegls_subproc, png_lossless, "
-                         "j2k_gdal)")
+                    help="codec name (ccsds121, ccsds122, ccsds123, jpegls, "
+                         "png or j2k) or its reference label (ccsds121_ext, "
+                         "ccsds122_ext, ccsds123_ext, jpegls_subproc, "
+                         "png_lossless, j2k_gdal)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--compressor-cmd", nargs="+", default=None)
@@ -84,17 +91,14 @@ def run_codec_main(argv=None):
     ap.add_argument("--dedupe-reps", action="store_true",
                     help="reps of an identical (tile, rate) point share one "
                          "metric lane (default: honest reps)")
-    args = ap.parse_args(argv)
+    args, _extra = ap.parse_known_args(argv)
 
     for flag, value, item in (
             ("--compressor-cmd", args.compressor_cmd,
              "item 20 (the external-wrapper codec)"),
             ("--profile", args.profile, "item 20 (torch.profiler)"),
             ("--mesh", args.mesh, "item 21 (multi-GPU)"),
-            ("--stream-rows", args.stream_rows, "item 18 (scene streaming)"),
-            ("--keep-bitstream with --entropy device",
-             (args.keep_bitstream and args.entropy == "device") or None,
-             "item 22 (the host Rice/bit-plane/run-length coder)")):
+            ("--stream-rows", args.stream_rows, "item 18 (scene streaming)")):
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to tpukit_torch yet "
@@ -102,7 +106,7 @@ def run_codec_main(argv=None):
 
     from tpukit_torch.codecs.registry import create
     from tpukit_torch.io import manifest
-    from tpukit_torch.sweep.runner import SweepConfig, run_sweep
+    from tpukit_torch.sweep.runner import SweepConfig
 
     copts = {k: getattr(args, k)
              for k in ("tile", "interleave", "preproc", "nbit", "zlevel",
@@ -125,7 +129,7 @@ def run_codec_main(argv=None):
     else:
         link_mbps, link_eff = args.caseA_link_mbps, args.caseA_eff
 
-    cfg = SweepConfig(
+    return SweepConfig(
         indices=Path(args.indices), codec=codec, codec_label=args.codec,
         outdir=Path(args.outdir), device=args.device,
         rate_key=args.rate_key, rates=args.rates,
@@ -137,7 +141,15 @@ def run_codec_main(argv=None):
         link_mbps=link_mbps, link_eff=link_eff, csv_decimal=args.csv_decimal,
         single_csv=(Path(args.single_csv) if args.single_csv else None),
         dedupe_reps=args.dedupe_reps)
-    return run_sweep(cfg)
+
+
+def run_codec_main(argv=None):
+    """Sweep runner CLI: run the sweep of :func:`run_codec_config` and
+    return 0, as tpukit's ``run_codec_main`` does."""
+    from tpukit_torch.sweep.runner import run_sweep
+
+    run_sweep(run_codec_config(argv))
+    return 0
 
 
 COMMANDS = {"run-codec": run_codec_main}
@@ -154,5 +166,4 @@ def main(argv=None):
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}", file=sys.stderr)
         return 2
-    COMMANDS[cmd](argv[1:])
-    return 0
+    return COMMANDS[cmd](argv[1:])

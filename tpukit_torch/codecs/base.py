@@ -3,8 +3,8 @@
 tpukit/codecs/base.py it uses.
 
 ``RateSpec``, ``CodecResult``, ``Codec``, ``int16_to_codec_domain``,
-``codec_domain_to_int16`` and ``trailing_zero_shift`` (:67-159, :223-240)
-are copied verbatim. ``device_work`` (:162-203) is
+``codec_domain_to_int16``, ``per_band_bpp`` and ``trailing_zero_shift``
+(:67-159, :206-240) are copied verbatim. ``device_work`` (:162-203) is
 ported to torch: the sweep runner uploads each tile once
 (``opts["device_cube"]``); a codec takes its device work from that upload
 when the shape fits, converting on the device, and otherwise converts on
@@ -173,6 +173,23 @@ def device_work(cube: np.ndarray, opts: dict, multiple: int = 1,
         host = cube.astype(_NUMPY[target])
     host, _, _ = pad_to_multiple(host, multiple)
     return torch.from_numpy(np.ascontiguousarray(host)).to(work_device(opts))
+
+def per_band_bpp(rate: "RateSpec", bands: int, bits_per_sample: float):
+    """CCSDS-122-style per-band rate request -> (target_bpp_band,
+    lossless_requested): --bpp is taken per band; --cr converts via
+    bits·B/CR spread over B bands; no/insufficient rate == effectively
+    lossless (reference ccsds122_wrap.py:97-107). Shared by the native
+    codec and the external-binary band wrapper so the semantics can't
+    drift."""
+    if rate.key == "bpp" and rate.value is not None:
+        target = float(rate.value)
+    elif rate.key == "cr" and rate.value is not None:
+        target = (bits_per_sample * bands / max(float(rate.value), 1e-6)) \
+            / bands
+    else:
+        target = bits_per_sample
+    return target, target >= bits_per_sample - 1e-9
+
 
 
 def trailing_zero_shift(cube: "np.ndarray") -> int:

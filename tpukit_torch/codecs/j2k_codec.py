@@ -28,9 +28,12 @@ Two entropy backends, as in tpukit (``entropy=``):
   coefficients on the device. Lossless points use the reversible integer
   5/3 DWT, whose inverse is the decoder's output. ``rate_fit`` bisects the
   base step on the device against a bpp/cr byte budget. The streams
-  themselves are not built: ``keep_bitstream`` needs the host coder of
-  tpukit/codecs/wavelet_common.py, which imports JAX, and raises (ROADMAP
-  item 22).
+  themselves are built only when ``keep_bitstream`` asks: the host coder
+  (``wavelet_common.wenc_quant_encode_ck`` / ``wenc_encode``) quantizes and
+  codes the coefficients the device produced, fetched once per cube; each
+  band's stream must be as long as the size model says, decode back to the
+  coded values, and (in a ladder) sum to the device requantizer's
+  wrap-around checksums, or the run raises.
 
 Both backends take JP2-style independent tiles (``tilex``/``tiley``);
 device-mode quality ladders batch same-shape tiles on the device.
@@ -57,7 +60,7 @@ from tpukit_torch.codecs import wavelet_common as wc
 from tpukit_torch.codecs.base import (Codec, CodecResult, RateSpec,
                                      device_work, edge_pad,
                                      trailing_zero_shift, work_device)
-from tpukit_torch.codecs.bitplane_model import bpc_size_bytes
+from tpukit_torch.codecs.bitplane_model import _wrap_i32, bpc_size_bytes
 from tpukit_torch.codecs.ccsds121 import encode_size_rows
 from tpukit_torch.io.j2c_enc import J2CPlan, at_size_multi
 from tpukit_torch.io.jp2 import JP2Decoder
@@ -75,9 +78,6 @@ _PCACHE_BYTES = int(2e9)
 # (32 planes of 1024² f32 = 128 MB per array); results do not depend on it
 _TILE_BATCH = 8
 
-_NOT_PORTED_KEEP = ("ROADMAP.md 'Modules to port', item 22 (device-mode "
-                    "--keep-bitstream: the host Rice/bit-plane/run-length "
-                    "coder)")
 _NOT_PORTED_MESH = "ROADMAP.md 'Modules to port', item 21 (multi-GPU)"
 
 # the harness context a tile-by-tile run hands on to each tile
@@ -190,12 +190,6 @@ def quantize(c: torch.Tensor, inv_step) -> torch.Tensor:
     t = torch.trunc(c * inv_step)
     q = t.clamp(float(_I32_MIN), float(1 << 31) - 128).nan_to_num(0.0)
     return torch.where(t >= float(1 << 31), _I32_MAX, q.to(torch.int32))
-
-
-def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
-    """An int64 value mod 2^32, as a signed 32-bit value (in int64)."""
-    v = v & 0xFFFFFFFF
-    return torch.where(v >= (1 << 31), v - (1 << 32), v)
 
 
 def wenc_size_bytes_light(qc: torch.Tensor, segbounds=None,
@@ -317,6 +311,50 @@ def lossless_sizes(coefs: torch.Tensor, order: torch.Tensor, segbounds,
                            consts)
 
 
+def _device_recon(qc: torch.Tensor, scale: torch.Tensor, base, levels: int,
+                  H0: int, W0: int, lo: int, hi: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize, inverse 9/7 DWT, round and clip the quantized cube
+    ``qc`` (B, Hp, Wp) int32 (port of tpukit ``_device_recon``, :229-243):
+    one point of :func:`requant_recon_ladder` from coefficients that are
+    already quantized, the same float32 operations in the same order."""
+    qf = qc.to(torch.float32)
+    deq = torch.where(qc != 0,
+                      (qf + torch.sign(qf) * 0.5) * (scale * float(base)),
+                      0.0)
+    rec = idwt2(deq, "97", levels)[:, :H0, :W0]
+    return torch.clamp(torch.round(rec), lo, hi).to(dtype)
+
+
+def _check_stream_sizes(streams, sizes, what: str) -> None:
+    """The size model's contract: a kept band stream is exactly as long as
+    the device model priced it."""
+    got = [len(s) for s in streams]
+    want = [int(v) for v in sizes]
+    if got != want:
+        raise RuntimeError(f"{what}: the host coder's stream lengths {got} "
+                           f"differ from the device size model's {want}")
+
+
+def _band_pool(B: int):
+    """A thread pool over bands for the host coder (its C++ releases the
+    GIL), min(8, bands, cores) workers; None on one core."""
+    nw = min(8, B, os.cpu_count() or 1)
+    if nw <= 1:
+        return None
+    from concurrent.futures import ThreadPoolExecutor
+    return ThreadPoolExecutor(max_workers=nw)
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A device tensor as a numpy array, through pinned memory on CUDA."""
+    if x.device.type != "cuda":
+        return x.numpy()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host.numpy()
+
+
 def requant_recon_ladder(coefs: torch.Tensor, inv_scale: torch.Tensor,
                          scale: torch.Tensor, inv_bases, bases, levels: int,
                          H0: int, W0: int, lo: int, hi: int,
@@ -337,12 +375,8 @@ def requant_recon_ladder(coefs: torch.Tensor, inv_scale: torch.Tensor,
         q64 = qc.to(torch.int64)
         s1.append(_wrap_i32(q64.sum()))
         s2.append(_wrap_i32(((q64 * q64) & 0xFFFFFFFF).sum()))
-        qf = qc.to(torch.float32)
-        deq = torch.where(qc != 0,
-                          (qf + torch.sign(qf) * 0.5) * (scale * float(base)),
-                          0.0)
-        rec = idwt2(deq, "97", levels)[:, :H0, :W0]
-        recons.append(torch.clamp(torch.round(rec), lo, hi).to(dtype))
+        recons.append(_device_recon(qc, scale, base, levels, H0, W0, lo, hi,
+                                    dtype))
     return torch.stack(recons), torch.stack(s1), torch.stack(s2)
 
 
@@ -405,9 +439,12 @@ class _PricingConsts:
         scale = _subband_steps(Hp, Wp, 1.0)
         inv_scale = np.float32(1.0) / scale
         self.order, _ = wc.device_scan_orders(Hp, Wp, LEVELS, device)
-        order = wc.scan_order(Hp, Wp, LEVELS)
+        self.order_host = wc.scan_order(Hp, Wp, LEVELS)
+        # the host coder's copy: the same float32 values the device holds
+        self.inv_scale_perm_host = np.ascontiguousarray(
+            inv_scale.ravel()[self.order_host])
         self.inv_scale_perm = torch.from_numpy(
-            np.ascontiguousarray(inv_scale.ravel()[order])).to(device)
+            self.inv_scale_perm_host).to(device)
         self.scale = torch.from_numpy(scale).to(device)
         self.inv_scale = torch.from_numpy(inv_scale).to(device)
         self.rle = wc.RleModelConsts(self.segbounds, device)
@@ -457,15 +494,11 @@ class J2KCodec(Codec):
             return quality_from_bpp(rate.value)
         return 35  # default (j2k_wrap.py:94)
 
-    def _refuse(self, keep_bitstream: bool, opts) -> None:
+    def _refuse(self, opts) -> None:
         if opts.get("mesh") is not None:
             raise NotImplementedError(
                 f"the j2k codec's mesh sweep is not ported to tpukit_torch "
                 f"yet ({_NOT_PORTED_MESH})")
-        if keep_bitstream and self.entropy == "device":
-            raise NotImplementedError(
-                f"j2k --entropy device with --keep-bitstream is not ported "
-                f"to tpukit_torch yet ({_NOT_PORTED_KEEP})")
 
     def _tiles(self, cube: np.ndarray, opts):
         """(tx, ty) when independent tiles smaller than the cube are asked
@@ -479,7 +512,7 @@ class J2KCodec(Codec):
 
     def run(self, cube: np.ndarray, dtype_name: str, rate: RateSpec,
             keep_bitstream: bool = False, **opts) -> CodecResult:
-        self._refuse(keep_bitstream, opts)
+        self._refuse(opts)
         tiles = self._tiles(cube, opts)
         if tiles is not None:
             return self._run_tiled(cube, dtype_name, rate, *tiles,
@@ -496,9 +529,10 @@ class J2KCodec(Codec):
         m = 1 << LEVELS
         Hp, Wp = H + (-H) % m, W + (-W) % m
         if q_used is None:
-            return self._run_lossless_device(cube, Hp, Wp, **opts)
+            return self._run_lossless_device(cube, Hp, Wp, keep_bitstream,
+                                             **opts)
         return self._run_lossy_device(cube, dtype_name, rate, q_used,
-                                      Hp, Wp, **opts)
+                                      Hp, Wp, keep_bitstream, **opts)
 
     def _run_tiled(self, cube: np.ndarray, dtype_name: str, rate: RateSpec,
                    tx: int, ty: int, keep_bitstream: bool,
@@ -560,7 +594,7 @@ class J2KCodec(Codec):
         :meth:`_sweep_ebcot`; device-mode quality points (and bpp/cr points
         without ``rate_fit``, mapped to a quality) share one DWT in
         :meth:`sweep_qualities`, and the rest go through :meth:`run`."""
-        self._refuse(keep_bitstream, opts)
+        self._refuse(opts)
         specs = list(specs)
         tiles = self._tiles(cube, opts)
         if tiles is not None:
@@ -568,8 +602,10 @@ class J2KCodec(Codec):
             q_ix = [i for i, s in enumerate(specs)
                     if not s.lossless and s.key == "quality"]
             out: list = [None] * len(specs)
-            if self.entropy == "device" and q_ix:
-                out = self._sweep_tiled_device(cube, specs, q_ix, *tiles,
+            # kept streams go tile by tile through run(), as in tpukit
+            if self.entropy == "device" and q_ix and not keep_bitstream:
+                out = self._sweep_tiled_device(cube, dtype_name, specs, q_ix,
+                                               *tiles,
                                                opts.get("device_cube"))
             return [r if r is not None else
                     self.run(cube, dtype_name, s,
@@ -583,29 +619,52 @@ class J2KCodec(Codec):
         out = [None] * len(specs)
         lossy_ix = [i for i, q in enumerate(qmap) if q is not None]
         if lossy_ix:
-            res = self.sweep_qualities(cube, [qmap[i] for i in lossy_ix],
+            res = self.sweep_qualities(cube, dtype_name,
+                                       [qmap[i] for i in lossy_ix],
+                                       keep_bitstream=keep_bitstream,
                                        cache=opts.get("device_plan_cache"),
-                                       device_cube=opts.get("device_cube"))
+                                       device_cube=opts.get("device_cube"),
+                                       mesh=opts.get("mesh"))
             for i, r in zip(lossy_ix, res):
                 out[i] = r
         return [r if r is not None else
-                self.run(cube, dtype_name, s, **opts)
+                self.run(cube, dtype_name, s, keep_bitstream=keep_bitstream,
+                         **opts)
                 for r, s in zip(out, specs)]
 
     # -- device entropy backend (fast mode) ---------------------------------
-    def sweep_qualities(self, cube: np.ndarray, qualities,
+    def sweep_qualities(self, cube: np.ndarray, dtype_name: str, qualities,
+                        keep_bitstream: bool = False,
                         cache: dict | None = None,
-                        device_cube: torch.Tensor | None = None) -> list:
-        """Model-first quality ladder of the device backend (the
-        ``keep_bitstream=False`` branch of tpukit j2k_codec.py:627-763):
-        one 9/7 DWT (kernel K2 on CUDA) of the padded cube, kept in the
-        harness ``cache`` across reps, whose wall counts into every point's
-        ``t_comp_s``; the reconstructions of every point are enqueued
-        first, then the exact size ladder, whose read-back waits for both.
-        Per point: ``t_comp_s`` = DWT + an equal share of the sizes' wall,
-        ``t_dec_s`` = an equal share of the residual wait for the recons.
-        ``CodecResult.recon`` is a tensor on the device of
-        ``device_cube``."""
+                        device_cube: torch.Tensor | None = None,
+                        mesh=None) -> list:
+        """Quality ladder of the device backend (port of tpukit
+        j2k_codec.py:627-846): one 9/7 DWT (kernel K2 on CUDA) of the
+        padded cube, kept in the harness ``cache`` across reps, whose wall
+        counts into every point's ``t_comp_s``; the reconstructions of
+        every point are enqueued first, then the exact size ladder.
+
+        Model-first (``keep_bitstream=False``): the sizes' read-back waits
+        for both. Per point: ``t_comp_s`` = DWT + an equal share of the
+        sizes' wall, ``t_dec_s`` = an equal share of the residual wait for
+        the recons.
+
+        With kept streams the scan-ordered coefficients are fetched once
+        per cube (cached across reps, the fetch billed with the DWT) and
+        the host coder quantizes and codes them per point and band on a
+        thread pool while the device works (``wenc_quant_encode_ck``, the
+        same float32 multiply as :func:`quantize`). Every stream is decoded
+        back and compared with the coded values, its length is held to the
+        device size model, and the host's wrap-around checksums to the
+        device requantizer's: a point that disagrees there gets its recon
+        rebuilt from the host's coefficients (with a warning), so that
+        recon == decode(stream) holds either way. ``t_comp_s`` = DWT +
+        the point's coding wall, ``t_dec_s`` = its decode wall + an equal
+        share of the residual wait for the device.
+
+        ``CodecResult.recon`` is a tensor on the device of ``device_cube``.
+        ``mesh`` is tpukit's device mesh, which the port does not have."""
+        self._refuse({"mesh": mesh})
         B, H, W = cube.shape
         m = 1 << LEVELS
         Hp, Wp = H + (-H) % m, W + (-W) % m
@@ -621,19 +680,29 @@ class J2KCodec(Codec):
 
         ckey = ("j2k_dwt", B, Hp, Wp, cube.dtype.name)
         if cache is not None and ckey in cache:
-            coefs, t_dwt = cache[ckey]
+            coefs, perm_coefs, t_dwt = cache[ckey]
         else:
             t0 = time.perf_counter()
             coefs = dwt97(device_work(cube, opts, m, torch.float32), LEVELS)
             _wait(_mark(dev))
+            perm_coefs = None
             t_dwt = time.perf_counter() - t0
-            if cache is not None:
-                cache[ckey] = (coefs, t_dwt)
+        if keep_bitstream and perm_coefs is None:
+            # the host coder's input: one bulk fetch per cube
+            t0 = time.perf_counter()
+            perm_coefs = _to_host(_perm(coefs, c.order))
+            t_dwt += time.perf_counter() - t0
+        if cache is not None:
+            cache[ckey] = (coefs, perm_coefs, t_dwt)
         # the recon ladder goes first: the device works on it while the
-        # host enqueues the sizes
-        recons, _, _ = requant_recon_ladder(
+        # host enqueues the sizes (and codes, with kept streams)
+        recons, s1d, s2d = requant_recon_ladder(
             coefs, c.inv_scale, c.scale, inv_bases, bases, LEVELS, H, W,
             int(info.min), int(info.max), _torch_dtype(cube.dtype))
+        if keep_bitstream:
+            return self._sweep_qualities_kept(
+                cube, qualities, bases, inv_bases, coefs, perm_coefs, t_dwt,
+                recons, s1d, s2d, c, dev)
         t0 = time.perf_counter()
         with mem_phase("comp"):
             sizes = ladder_sizes(coefs, c.order, c.inv_scale_perm, inv_bases,
@@ -651,14 +720,108 @@ class J2KCodec(Codec):
             bitstreams=None, extras={"quality_used": q})
             for i, q in enumerate(qualities)]
 
+    def _sweep_qualities_kept(self, cube, qualities, bases, inv_bases, coefs,
+                              perm_coefs, t_dwt, recons, s1d, s2d, c,
+                              dev) -> list:
+        """The kept-stream branch of :meth:`sweep_qualities` (tpukit
+        j2k_codec.py:765-846), entered with the recon ladder enqueued."""
+        B, H, W = cube.shape
+        Hp, Wp = coefs.shape[-2:]
+        info = np.iinfo(cube.dtype)
+        # the device prices what the host codes, behind the recon ladder
+        sizes_dev = ladder_sizes(coefs, c.order, c.inv_scale_perm, inv_bases,
+                                 c.segbounds, c.rle)
+        results = []
+        pend = []   # (index, base, host checksums)
+        pool = _band_pool(B)
+        pmap = pool.map if pool is not None else map
+        try:
+            for i, q in enumerate(qualities):
+                inv_base = inv_bases[i]
+                t0 = time.perf_counter()
+                with mem_phase("comp"):
+                    # fused native quantize + encode: trunc(c * (inv_step *
+                    # inv_base)), the device requantizer's float32 operations
+                    # in its association order; the wrap-around checksums
+                    # accumulate in the same pass
+                    enc_qc = list(pmap(
+                        lambda cf: wc.wenc_quant_encode_ck(
+                            cf, c.inv_scale_perm_host, inv_base,
+                            segbounds=c.segbounds), perm_coefs))
+                    encoded = [e for e, _, _, _ in enc_qc]
+                t_comp = time.perf_counter() - t0 + t_dwt
+                t0 = time.perf_counter()
+                with mem_phase("dec"):
+                    decs = list(pmap(
+                        lambda e: wc.wenc_decode(e, Hp * Wp, c.segbounds),
+                        encoded))
+                    for b in range(B):
+                        if not np.array_equal(decs[b], enc_qc[b][1]):
+                            raise RuntimeError(
+                                "host coder round-trip mismatch (quality "
+                                f"{q}, band {b + 1})")
+                t_dec = time.perf_counter() - t0
+                # per-band sums mod 2^32 fold into the cube's total
+                s1h = sum(s1 for _, _, s1, _ in enc_qc) & 0xFFFFFFFF
+                s2h = sum(s2 for _, _, _, s2 in enc_qc) & 0xFFFFFFFF
+                to_i32 = lambda v: v - (1 << 32) if v >= (1 << 31) else v
+                pend.append((i, bases[i], to_i32(s1h), to_i32(s2h)))
+                results.append(CodecResult(
+                    codec="j2k_gdal", encoder=self.encoder_desc,
+                    bitstream_bytes=sum(len(e) for e in encoded),
+                    recon=recons[i], t_comp_s=t_comp, t_dec_s=t_dec,
+                    bitstreams={f"b{b+1:02d}.j2c": e
+                                for b, e in enumerate(encoded)},
+                    extras={"quality_used": q}))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        # settle the ladder: one wait and one small fetch. Only the device
+        # time still outstanding after the host's coding is billed, shared
+        # equally by the points' t_dec
+        t0 = time.perf_counter()
+        sizes = sizes_dev.cpu().numpy()
+        s1d_h, s2d_h = s1d.cpu().tolist(), s2d.cpu().tolist()
+        t_dev = time.perf_counter() - t0
+        for r, sz in zip(results, sizes):
+            r.t_dec_s += t_dev / max(len(results), 1)
+            _check_stream_sizes(r.bitstreams.values(), sz,
+                                f"j2k device mode, quality "
+                                f"{r.extras['quality_used']}")
+        for (idx, base, s1h, s2h), s1, s2 in zip(pend, s1d_h, s2d_h):
+            if (int(s1), int(s2)) != (s1h, s2h):
+                # the device's float32 multiply disagreed with the host's:
+                # rebuild this point's recon from the host's coefficients so
+                # that recon == decode(stream) stays exact
+                import warnings
+                warnings.warn("device requantization checksum mismatch; "
+                              "uploading host coefficients")
+                inv_base = np.float32(1.0) / base
+                perm = (perm_coefs * (c.inv_scale_perm_host
+                                      * inv_base)[None]).astype(np.int32)
+                qc = np.empty((B, Hp * Wp), np.int32)
+                qc[:, c.order_host] = perm     # undo the coder scan order
+                results[idx].recon = _device_recon(
+                    torch.from_numpy(qc.reshape(B, Hp, Wp)).to(dev), c.scale,
+                    base, LEVELS, H, W, int(info.min), int(info.max),
+                    _torch_dtype(cube.dtype))
+        return results
+
     def _run_lossy_device(self, cube, dtype_name, rate, q_used, Hp, Wp,
-                          **opts):
-        """One lossy point with no bulk transfer (port of tpukit
-        j2k_codec.py:1535-1607): the 9/7 DWT (K2), the scan-order gather,
-        with ``rate_fit`` and a bpp/cr key the base step fitted on the
-        device (:func:`fit_base`), the exact sizes, and the requantized
-        reconstruction. Only the byte counts (and the fitted base) come to
-        the host."""
+                          keep_bitstream: bool = False, **opts):
+        """One lossy point (port of tpukit j2k_codec.py:1535-1607, and of
+        :944-1002 with kept streams): the 9/7 DWT (K2), the scan-order
+        gather, with ``rate_fit`` and a bpp/cr key the base step fitted on
+        the device (:func:`fit_base`), the exact sizes, and the requantized
+        reconstruction. Without kept streams nothing bulky moves: only the
+        byte counts (and the fitted base) come to the host.
+
+        With ``keep_bitstream`` the coefficients come to the host once, are
+        quantized there (``trunc(c * (inv_scale * inv_base))`` in float32,
+        the device's operations) and coded band by band
+        (``wenc_encode``); each stream's length must equal the device size
+        model's; the reconstruction is the decoded streams' values,
+        uploaded and run through :func:`_device_recon`."""
         B, H, W = cube.shape
         info = np.iinfo(cube.dtype)
         peak = float(opts.get("peak_override") or 0.0) \
@@ -686,18 +849,37 @@ class J2KCodec(Codec):
             else:
                 base = base_step_for_quality(q_used, peak)
             inv_base = np.float32(1.0) / np.float32(base)
-            sum_bytes = int(ladder_sizes(coefs, c.order, c.inv_scale_perm,
-                                         [inv_base], c.segbounds,
-                                         c.rle).sum())
+            sizes = ladder_sizes(coefs, c.order, c.inv_scale_perm,
+                                 [inv_base], c.segbounds, c.rle)[0]
+            encoded = None
+            if keep_bitstream:
+                inv_steps = c.inv_scale_perm_host * inv_base
+                qc = np.trunc(_to_host(perm) * inv_steps[None]) \
+                    .astype(np.int32)
+                encoded = [wc.wenc_encode(qc[b], segbounds=c.segbounds)
+                           for b in range(B)]
+                _check_stream_sizes(encoded, sizes.cpu().numpy(),
+                                    "j2k device mode")
+            sum_bytes = int(sizes.sum())
         t_comp = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         with mem_phase("dec"):
-            recons, _, _ = requant_recon_ladder(
-                coefs, c.inv_scale, c.scale, [inv_base], [np.float32(base)],
-                LEVELS, H, W, int(info.min), int(info.max),
-                _torch_dtype(cube.dtype))
-            recon = recons[0]
+            if keep_bitstream:
+                dec = np.empty((B, Hp * Wp), np.int32)
+                for b in range(B):
+                    dec[b, c.order_host] = wc.wenc_decode(
+                        encoded[b], Hp * Wp, c.segbounds)
+                recon = _device_recon(
+                    torch.from_numpy(dec.reshape(B, Hp, Wp)).to(dev),
+                    c.scale, np.float32(base), LEVELS, H, W, int(info.min),
+                    int(info.max), _torch_dtype(cube.dtype))
+            else:
+                recons, _, _ = requant_recon_ladder(
+                    coefs, c.inv_scale, c.scale, [inv_base],
+                    [np.float32(base)], LEVELS, H, W, int(info.min),
+                    int(info.max), _torch_dtype(cube.dtype))
+                recon = recons[0]
             _wait(_mark(dev))
         t_dec = time.perf_counter() - t0
 
@@ -709,16 +891,24 @@ class J2KCodec(Codec):
         return CodecResult(
             codec="j2k_gdal", encoder=self.encoder_desc,
             bitstream_bytes=sum_bytes, recon=recon,
-            t_comp_s=t_comp, t_dec_s=t_dec, bitstreams=None,
+            t_comp_s=t_comp, t_dec_s=t_dec,
+            bitstreams=({f"b{b+1:02d}.j2c": e for b, e in enumerate(encoded)}
+                        if keep_bitstream else None),
             extras=extras)
 
-    def _run_lossless_device(self, cube, Hp, Wp, **opts):
-        """Reversible point with no bulk transfer (port of tpukit
-        j2k_codec.py:1609-1646): the common trailing zero bits are shifted
-        out, the integer 5/3 DWT runs on the device, the exact sizes of the
-        full streams are summed (+1 byte per band, the stream's shift
-        prefix), and the reconstruction is the inverse transform, which
-        restores the input exactly."""
+    def _run_lossless_device(self, cube, Hp, Wp, keep_bitstream: bool = False,
+                             **opts):
+        """Reversible point (port of tpukit j2k_codec.py:1609-1646, and of
+        :912-943 with kept streams): the common trailing zero bits are
+        shifted out, the integer 5/3 DWT runs on the device, the exact
+        sizes of the full streams are summed (+1 byte per band, the
+        stream's shift prefix), and the reconstruction is the inverse
+        transform, which restores the input exactly. With
+        ``keep_bitstream`` the scan-ordered coefficients come to the host
+        and each band is coded as the shift byte + ``wenc_encode``; the
+        lengths must equal the model's, and the reconstruction is the
+        inverse transform of the decoded streams, shifted back by the
+        stream's own prefix."""
         H0, W0 = cube.shape[-2:]
         B = cube.shape[0]
         dev = work_device(opts)
@@ -730,12 +920,27 @@ class J2KCodec(Codec):
             if shift:
                 wi = wi >> shift        # exact: the dropped LSBs are zero
             coefs = dwt2(wi, "53", LEVELS)
-            sum_bytes = int(lossless_sizes(coefs, c.order, c.segbounds,
-                                           c.rle).sum()) + B
+            sizes = lossless_sizes(coefs, c.order, c.segbounds, c.rle) + 1
+            encoded = None
+            if keep_bitstream:
+                perm = _to_host(_perm(coefs, c.order))
+                encoded = [bytes([shift]) + wc.wenc_encode(
+                    perm[b], segbounds=c.segbounds) for b in range(B)]
+                _check_stream_sizes(encoded, sizes.cpu().numpy(),
+                                    "j2k device mode, lossless")
+            sum_bytes = int(sizes.sum())
         t_comp = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         with mem_phase("dec"):
+            if keep_bitstream:
+                dec = np.empty((B, Hp * Wp), np.int32)
+                for b in range(B):
+                    dec[b, c.order_host] = wc.wenc_decode(
+                        encoded[b][1:], Hp * Wp, c.segbounds)
+                coefs = torch.from_numpy(dec.reshape(B, Hp, Wp)).to(dev)
+                # the decoder trusts the stream's own shift prefix
+                shift = encoded[0][0]
             rec = idwt2(coefs, "53", LEVELS)[:, :H0, :W0]
             if shift:
                 rec = rec << shift
@@ -745,12 +950,17 @@ class J2KCodec(Codec):
         return CodecResult(
             codec="j2k_gdal", encoder=self.encoder_desc,
             bitstream_bytes=sum_bytes, recon=recon,
-            t_comp_s=t_comp, t_dec_s=t_dec, bitstreams=None,
-            extras={"quality_used": None, "lsb_shift": shift})
+            t_comp_s=t_comp, t_dec_s=t_dec,
+            bitstreams=({f"b{b+1:02d}.j2c": e for b, e in enumerate(encoded)}
+                        if keep_bitstream else None),
+            # tpukit's kept-stream run reports no lsb_shift: the stream's
+            # prefix byte carries it
+            extras=({"quality_used": None} if keep_bitstream
+                    else {"quality_used": None, "lsb_shift": shift}))
 
-    def _sweep_tiled_device(self, cube: np.ndarray, specs, q_ix, tx: int,
-                            ty: int, device_cube: torch.Tensor | None = None
-                            ) -> list:
+    def _sweep_tiled_device(self, cube: np.ndarray, dtype_name: str, specs,
+                            q_ix, tx: int, ty: int,
+                            device_cube: torch.Tensor | None = None) -> list:
         """Batched tiled device sweep of the QUALITY specs ``q_ix`` (port of
         tpukit j2k_codec.py:1381-1475): tiles grouped by shape, at most
         ``_TILE_BATCH`` to a batch, each batch stacked along the band axis

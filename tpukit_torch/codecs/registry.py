@@ -2,9 +2,9 @@
 """Codec registry: name -> constructor, with the reference-label aliases of
 tpukit/codecs/registry.py:10-17 so CSV codec ids map onto codecs.
 
-The port has CCSDS-121, CCSDS-123 (both predictors), JPEG-LS, PNG and J2K
-(both entropy backends). CCSDS-122 raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports it."""
+The port has tpukit's six codecs: CCSDS-121, CCSDS-122 (both entropy
+backends), CCSDS-123 (both predictors), JPEG-LS, PNG and J2K (both entropy
+backends)."""
 
 from __future__ import annotations
 
@@ -20,14 +20,11 @@ _ALIASES = {
 # name -> (module under tpukit_torch.codecs, class); imported at first use
 _CODECS = {
     "ccsds121": ("ccsds121_codec", "CCSDS121Codec"),
+    "ccsds122": ("ccsds122_codec", "CCSDS122Codec"),
     "ccsds123": ("ccsds123_codec", "CCSDS123Codec"),
     "j2k": ("j2k_codec", "J2KCodec"),
     "jpegls": ("jpegls_codec", "JPEGLSCodec"),
     "png": ("png_codec", "PNGCodec"),
-}
-
-_NOT_PORTED = {
-    "ccsds122": "ROADMAP.md 'Modules to port', item 15 (CCSDS-122)",
 }
 
 
@@ -38,10 +35,6 @@ def create(name: str, **opts):
         module, cls = _CODECS[key]
         return getattr(import_module(f"tpukit_torch.codecs.{module}"),
                        cls)(**opts)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"codec '{name}' is not ported to tpukit_torch yet: "
-            f"{_NOT_PORTED[key]}")
     raise KeyError(f"Unknown codec '{name}'. Known: {names()}")
 
 

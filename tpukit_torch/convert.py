@@ -6,8 +6,8 @@ the codec configuration, the CCSDS-121 plans, the J2K byte targets and the
 CCSDS-123 band weights:
 
   * ``from_tpukit_codec`` builds the port's codec from a tpukit one (every
-    constructor argument of CCSDS121Codec, CCSDS123Codec, JPEGLSCodec,
-    PNGCodec and J2KCodec);
+    constructor argument of CCSDS121Codec, CCSDS122Codec, CCSDS123Codec,
+    JPEGLSCodec, PNGCodec and J2KCodec);
   * the plan is tpukit's plain dict in both packages (keys ``n``,
     ``sizes``, ``k_in``, ``bit_off``, ``seg_bits``, ``total_bits``,
     ``bits``, ``J``, ``rsi``, ``preprocess``), so the host coder
@@ -37,6 +37,7 @@ PLAN_KEYS = ("n", "sizes", "k_in", "bit_off", "seg_bits", "total_bits",
 _ARGS = {
     "ccsds121": ("tile", "interleave", "preproc", "nbit", "block_size",
                  "rsi", "plan_chunk"),
+    "ccsds122": ("entropy",),
     "ccsds123": ("tile", "interleave", "crop_nodata", "predictor",
                  "pred_bands", "pred_mode", "local_sums", "entropy"),
     "j2k": ("tilex", "tiley", "rate_fit", "entropy"),

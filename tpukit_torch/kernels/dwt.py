@@ -1,10 +1,11 @@
 # -*- coding: utf-8 -*-
 """2-D multilevel DWTs (lifting) on torch tensors: the plain versions.
 
-Port of the irreversible CDF 9/7 and the reversible integer 5/3 paths of
-tpukit/kernels/dwt.py (``_fwd53_1d``, ``_inv53_1d``, ``_fwd97_1d``,
-``_inv97_1d``, ``_dwt2_once``, ``_idwt2_once``, ``dwt2``, ``idwt2``,
-``subband_slices``; :72-112, :176-229, :256-269): split domain,
+Port of the irreversible CDF 9/7, the reversible integer 5/3 and the
+reversible integer 9/7M paths of tpukit/kernels/dwt.py (``_fwd53_1d``,
+``_inv53_1d``, ``_fwd97_1d``, ``_inv97_1d``, ``_fwd97m_1d``,
+``_inv97m_1d``, ``_dwt2_once``, ``_idwt2_once``, ``dwt2``, ``idwt2``,
+``subband_slices``; :72-229, :256-269): split domain,
 whole-point symmetric extension (s[n] := s[n-1], d[-1] := d[0]), the last
 axis first and then the rows of each half, and the packed Mallat layout
 [LL | HL; LH | HH] per level, in place of the level's window.
@@ -22,7 +23,24 @@ two agree to f32 round-off (tests/test_torch_dwt.py).
 
 The 5/3 transform is int32 throughout (arithmetic shifts, as in JAX), so
 it equals tpukit's bit for bit and its inverse restores the input exactly.
-The integer 9/7M transform is not ported yet (ROADMAP.md item 15).
+
+The 9/7M transform (CCSDS 122.0-B 3.3, kind ``"97m"``) is int32 throughout
+too. tpukit rounds its two lifting steps in float32,
+``floor((9/16)(s+s_r) - (1/16)(s_l+s_rr) + 0.5)`` and
+``floor(-0.25(d_l+d) + 0.5)``; here they are the integer forms
+``(9*(s+s_r) - (s_l+s_rr) + 8) >> 4`` and ``(2 - (d_l+d)) >> 2`` with
+arithmetic shifts, the same on the CPU and on CUDA with no rounding
+contract. The two forms agree wherever float32 holds tpukit's terms
+exactly: every term is a multiple of 1/16, and float32 holds such a
+multiple exactly below 2^20, so while the low-pass samples of a level stay
+below 2^19.8 in magnitude (``9*|s+s_r|/16 < 2^20``) nothing is rounded
+before the floor. The low-pass filter's absolute gain is at most 2.125 per
+1-D pass, so a 16-bit sample can reach that magnitude only at the third
+level and only on a pattern built for it; constant planes at either end of
+the uint16 and int16 ranges, checkerboards and uniform noise over the full
+ranges stay below 2^18 and the two transforms are bit-equal on them
+(tests/test_torch_dwt97m.py). Beyond that magnitude tpukit's float32 loses
+bits and this version stays exact and reversible.
 """
 
 from __future__ import annotations
@@ -101,9 +119,52 @@ def _inv97_1d(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
     return _interleave(s, d, axis)
 
 
-_FWD = {"53": _fwd53_1d, "97": _fwd97_1d}
-_INV = {"53": _inv53_1d, "97": _inv97_1d}
-_DTYPE = {"53": torch.int32, "97": torch.float32}
+def _prev2(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """a[i-1] along ``axis`` with the whole-sample symmetric head
+    a[-1] := a[1] (``_sym_l2``: the signal's x[-2] = x[2])."""
+    n = a.shape[axis]
+    if n == 1:
+        return a
+    return torch.cat([a.narrow(axis, 1, 1), a.narrow(axis, 0, n - 1)], axis)
+
+
+def _next2(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """a[i+2] along ``axis`` with the whole-sample symmetric tail
+    a[n] := a[n-1], a[n+1] := a[n-2] (``_sym_r2``)."""
+    n = a.shape[axis]
+    if n == 1:
+        return a
+    return torch.cat([a.narrow(axis, 2, n - 2), a.narrow(axis, n - 1, 1),
+                      a.narrow(axis, n - 2, 1)], axis)
+
+
+def _predict97m(s: torch.Tensor, axis: int) -> torch.Tensor:
+    """round_half_up((9/16)(s + s_r) - (1/16)(s_l + s_rr)), in integers."""
+    return (9 * (s + _next(s, axis))
+            - (_prev2(s, axis) + _next2(s, axis)) + 8) >> 4
+
+
+def _update97m(d: torch.Tensor, axis: int) -> torch.Tensor:
+    """round_half_up(-(d_l + d) / 4), in integers."""
+    return (2 - (_prev(d, axis) + d)) >> 2
+
+
+def _fwd97m_1d(x: torch.Tensor, axis: int):
+    s, d = _split(x, axis)
+    d = d - _predict97m(s, axis)
+    s = s - _update97m(d, axis)
+    return s, d
+
+
+def _inv97m_1d(s: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
+    s = s + _update97m(d, axis)
+    d = d + _predict97m(s, axis)
+    return _interleave(s, d, axis)
+
+
+_FWD = {"53": _fwd53_1d, "97": _fwd97_1d, "97m": _fwd97m_1d}
+_INV = {"53": _inv53_1d, "97": _inv97_1d, "97m": _inv97m_1d}
+_DTYPE = {"53": torch.int32, "97": torch.float32, "97m": torch.int32}
 
 
 def _dwt2_once(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -124,9 +185,8 @@ def _idwt2_once(c: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _check(kind: str, H: int, W: int, levels: int):
     if kind not in _FWD:
-        raise NotImplementedError(
-            f"dwt kind {kind!r} is not ported to tpukit_torch yet (ROADMAP.md "
-            f"'Modules to port', item 15); only '53' and '97' are")
+        raise ValueError(f"dwt kind must be one of {sorted(_FWD)}, got "
+                         f"{kind!r}")
     if H % (1 << levels) or W % (1 << levels):
         raise ValueError(f"H and W must be divisible by 2^levels (got "
                          f"{H}x{W} at levels={levels})")
@@ -134,7 +194,7 @@ def _check(kind: str, H: int, W: int, levels: int):
 
 def dwt2(x: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
     """Multilevel forward 2-D DWT of (..., H, W), packed in place (Mallat
-    layout), on x's device: float32 for "97", int32 for "53"."""
+    layout), on x's device: float32 for "97", int32 for "53" and "97m"."""
     H, W = x.shape[-2], x.shape[-1]
     _check(kind, H, W, levels)
     out = x.to(_DTYPE[kind], copy=True)

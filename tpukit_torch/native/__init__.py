@@ -5,9 +5,11 @@ The port's copy of tpukit/native/__init__.py. The sources in
 ``tpukit_torch/native/src`` are a verbatim copy of tpukit's; they compile
 with g++ at first use into ``tpukit_torch/native/build/`` (gitignored),
 keyed by a digest of the sources and flags, and older builds are pruned.
-The port uses the CCSDS-121 coder (``native.ccsds121_host``) and the JPEG
-2000 tier-1 analysis, synthesis and decoder (``io.j2c_enc``, ``io.jp2``);
-the other coders are kept for the slices that port them. Two processes
+The port uses the CCSDS-121 coder (``native.ccsds121_host``), the JPEG
+2000 tier-1 analysis, synthesis and decoder (``io.j2c_enc``, ``io.jp2``),
+the CCSDS-123 standard coder, JPEG-LS, the PNG filters, the embedded
+bit-plane and run-length coders (``codecs.wavelet_common``) and the
+CCSDS-122 BPE (``codecs.bpe122``). Two processes
 that build at once (test workers) take turns on a lock file in the build
 directory, so the library is compiled once and never read half-written.
 """
