@@ -100,7 +100,29 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      run's byte for byte, ``wenc_decode`` of them, dequantized and inverse
      transformed, equal to recon.tif, K1 and K2 launches as counted; (d)
      one 2 bpp CCSDS-122 point on phase 3's 180-band tile, for the band
-     grouping of the BPE model and its device-memory peak.
+     grouping of the BPE model and its device-memory peak;
+  9. scene streaming: (a) bench.py's ``ccsds121_stream512`` row, ``run-codec
+     --codec ccsds121 --rate-key none --reps 1 --preproc none --nbit 16
+     --interleave bip --tile 512 --stream-rows 512`` (plus
+     ``--keep-bitstream``) on its 2000×10000×4 scene: the host's RSS delta
+     under bench.py's 500 MB, and the rows, recon.tif (== the scene) and
+     every tile's stream equal to the same scene run whole-cube, K1
+     launched 0 times (a 4×512² tile is below one plan chunk); (b) a
+     180×4096×1024 Case B scene (1.5 GB, the Case B tile recipe, its
+     noise drawn on the card) that streams by itself in 1024-row strips, through the anchor's CCSDS-121
+     flags and through ``--codec ccsds123``, streams kept: lossless,
+     recon.tif == the scene, every stream equal to a whole-cube run of the
+     same scene, the RSS delta below the whole-cube run's, K1 12 (CCSDS-121)
+     and 6 (CCSDS-123) times a tile in both; one more CCSDS-123 sweep under
+     ``torch.profiler``; (c) a 32×1280×512 crop of it with a NoData stripe
+     and a user mask, its noisy recon pre-seeded, streamed in 512-row
+     strips on the card and on the CPU: integers and the ERR8/RGB8
+     quicklooks equal, PSNR/SSIM within rel 1e-5, SAM/SID/LMSE within rel
+     1e-4; (d) ``make-baseline-a`` on four synthetic 10,980² bands and
+     ``make-baseline-b`` on two synthetic 224-band 1000² EnMAP products, on
+     the card and with ``--device cpu``: every output file byte-equal; in
+     each other ``--err-mode`` on the card, its error map equal to the
+     CPU's map of the same scenes.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -111,6 +133,7 @@ nothing of tpukit: the input recipes are copies of bench.py's.
 import csv
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -428,6 +451,30 @@ def make_caseb_cube(rng, bands=180, size=512):
     return ((cube.view(np.uint16) >> 2) << 2).view(np.int16)
 
 
+def make_caseb_scene(rng, bands, rows, cols, dev):
+    """The Case B tile recipe (make_caseb_cube) at a scene's size: the same
+    smoothed spatial texture and spectral gains, drawn from ``rng``, with
+    the N(0, 12) noise drawn on the card from a generator seeded by
+    ``rng`` (a billion normals take minutes on the host); 14-in-16 int16,
+    returned on the host."""
+    base = rng.normal(0, 1, (rows, cols))
+    k = np.ones(9) / 9.0
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
+    base = (base - base.min()) / (np.ptp(base) + 1e-9)
+    spatial = torch.from_numpy(500 + 6000 * base).to(dev)
+    gains = 0.6 + 0.8 * np.abs(np.sin(np.linspace(0.3, 5.8, bands)))
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    out = torch.empty((bands, rows, cols), dtype=torch.int16, device=dev)
+    for b in range(bands):
+        band = spatial * float(gains[b]) + 12.0 * torch.randn(
+            (rows, cols), generator=g, device=dev, dtype=torch.float64)
+        # clip, truncate toward zero, zero the 2 LSBs (x & -4 is the
+        # recipe's >> 2 << 2 on the uint16 bit view)
+        out[b] = band.clamp(-8192, 8191).to(torch.int16) & -4
+    return out.cpu().numpy()
+
+
 def make_casea_tiles(rng):
     """bench.py's two canonical Case A tiles (HC, LC), by its recipe
     (bench.py:72-81): 1024²×4 uint16, 12-in-16."""
@@ -703,12 +750,13 @@ def num(s: str) -> float:
     return float(s.replace(",", "."))
 
 
-def make_scene(rng):
+def make_scene(rng, bands=4, height=2000, width=10000):
     """bench.py's 2000×10000×4 uint16 12-in-16 Case A scene, by its recipe
     (bench.py:415-420)."""
-    gy, gx = np.mgrid[0:2000, 0:10000]
+    gy, gx = np.mgrid[0:height, 0:width]
     sbase = ((700 + 1.1 * gy + 0.7 * gx).astype(np.int32)) % 4096
-    return (np.clip(sbase[None] + rng.integers(-300, 300, (4, 2000, 10000)),
+    return (np.clip(sbase[None] + rng.integers(-300, 300,
+                                               (bands, height, width)),
                     0, 4095).astype(np.uint16) << 4).astype(np.uint16)
 
 
@@ -828,7 +876,7 @@ def run_scene(work: Path, scene: np.ndarray, dev, card):
     cuda_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = J2KCodec(SCENE_TILE, SCENE_TILE, entropy="device").sweep_rates(
-        crop, "uint16", spec)[0]
+        crop, "uint16", spec, device="cpu")[0]
     cpu_s = time.perf_counter() - t0
     if got.recon.device.type != "cuda":
         raise AssertionError(f"the crop's recon is on {got.recon.device}")
@@ -904,7 +952,8 @@ def run_device_ladder(work: Path, tiles, card):
 
     t0 = time.perf_counter()
     cpu = J2KCodec(entropy="device").sweep_qualities(tiles["HC"], "uint16",
-                                                     QUALITIES_HELD)
+                                                     QUALITIES_HELD,
+                                                     device="cpu")
     cpu_s = time.perf_counter() - t0
     for q, want in zip(QUALITIES_HELD, cpu):
         got = [int(r["bitstream_bytes"]) for r in rows
@@ -949,7 +998,8 @@ def run_device_lossless(work: Path, tile: np.ndarray, card):
     if k1 != 3:
         raise AssertionError(f"K1 launched {k1} times, expected 3")
     (row,) = read_rows(work / "runsL" / "metrics.csv")
-    want = J2KCodec(entropy="device").run(tile, "uint16", RateSpec.none())
+    want = J2KCodec(entropy="device").run(tile, "uint16", RateSpec.none(),
+                                          device="cpu")
     if (row["lossless"], row["max_abs_err"]) != ("1", "0"):
         raise AssertionError(f"not lossless: {row}")
     if int(row["bitstream_bytes"]) != want.bitstream_bytes:
@@ -984,7 +1034,7 @@ def run_device_rate_fit(work: Path, tile: np.ndarray, card):
     target = bpp * corner.size / 8.0
     t0 = time.perf_counter()
     want = J2KCodec(entropy="device", rate_fit=True).run(
-        corner, "uint16", RateSpec.of("bpp", bpp))
+        corner, "uint16", RateSpec.of("bpp", bpp), device="cpu")
     cpu_s = time.perf_counter() - t0
     got = int(row["bitstream_bytes"])
     if got != want.bitstream_bytes or got > target:
@@ -1194,7 +1244,7 @@ def run_ccsds123(work: Path, cube: np.ndarray, dev, card, anchor_bytes: int):
     # the same encode on the CPU (what --device cpu runs): its stream
     t0 = time.perf_counter()
     want = CCSDS123Codec().run(cube, "int16", RateSpec.none(),
-                               keep_bitstream=True)
+                               keep_bitstream=True, device="cpu")
     cpu_s = time.perf_counter() - t0
     (cpu_stream,) = want.bitstreams.values()
     if not np.array_equal(want.recon.numpy(), cube):
@@ -1441,7 +1491,7 @@ def run_ccsds122(work: Path, tiles, dev, card, entropy: str):
     want = CCSDS122Codec(entropy).sweep_rates(
         tiles["HC"], "uint16",
         [RateSpec.of("bpp", float(r)) for r in RATES_122_HELD],
-        keep_bitstream=True)
+        keep_bitstream=True, device="cpu")
     cpu_s = time.perf_counter() - t0
     for rate, w in zip(RATES_122_HELD, want):
         d = rate_dir(out, "HC", "bpp", rate)
@@ -1566,7 +1616,7 @@ def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
             {"tilex": SCENE_TILE, "tiley": SCENE_TILE} if extra else {})
         ).sweep_rates(cube, "uint16",
                       [RateSpec.of("quality", int(q)) for q in rates],
-                      keep_bitstream=True)
+                      keep_bitstream=True, device="cpu")
         cpu_s = time.perf_counter() - t0
         for q, row, w in zip(rates, rows, want):
             d = rate_dir(out, tid, "quality", q)
@@ -1665,6 +1715,517 @@ def run_phase8(tiles, cube, dev, card):
                    "j2k_device_kept_tiled": tiled_k2}}
 
 
+# phase 9: scene streaming. 9b's EnMAP-like data take: over 1 GiB (1.5 GB)
+# so that it streams by itself; 6144 rows, which would hold the reference's
+# Case B LC tile offset (row 5620, tpukit/cli/main.py:224), took phase 9
+# past its 300 s
+SCENE_B_ROWS, SCENE_B_COLS = 4096, 1024
+STRIP_ROWS_AUTO = 1024          # stream_plan's strip height without --stream-rows
+ERR_MODES = ("max", "mean", "rms", "p95", "count3")
+# 9d's inputs: a Sentinel-2 10 m band's size; EnMAP products of 224 bands
+# x 1000², whose 1000 x 2000 mosaic holds neither of the reference's tile
+# offsets, so the tiles are placed inside it
+S2_SIZE = 10980
+CASEA_FLAGS = ()
+ENMAP_BANDS, ENMAP_SIZE = 224, 1000
+CASEB_FLAGS = ("--lc", "580,400", "--hc", "1400,64")
+
+
+def rss_bytes() -> int:
+    import psutil
+    return psutil.Process().memory_info().rss
+
+
+def rss_parts() -> str:
+    """The process's resident memory, anonymous and file-backed."""
+    with open("/proc/self/status") as f:
+        return ", ".join(" ".join(line.split()) for line in f
+                         if line.startswith(("VmRSS", "RssAnon", "RssFile")))
+
+
+def device_busy(argv, card, tag):
+    """One sweep under torch.profiler with the device's activity only (no
+    host-op table: the trace of a scene's host ops takes minutes to
+    summarize): its wall and device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_codec(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_ms(prof)
+    log(f"[{tag}] traced sweep wall {wall:.2f} s, device busy {busy:.1f} ms "
+        f"({100.0 * busy / (1000.0 * wall):.2f}% busy"
+        + (", no device events traced: not measured" if busy == 0 else "")
+        + f") on {card}")
+
+
+def measured_sweep(argv, cfg_edit=None):
+    """One sweep through the CLI's config, with K1 counted from 0 and the
+    host's RSS sampled: (result, wall s, K1 launches, RSS delta MB)."""
+    from tpukit_torch.sweep.proc import MemorySampler
+    cfg = run_codec_config(argv)
+    if cfg_edit:
+        cfg_edit(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs_table.launches = 0
+    rss0 = rss_bytes()
+    with MemorySampler() as ms:
+        t0 = time.perf_counter()
+        res = runner.run_sweep(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    delta = (max(ms.peak_bytes or 0, rss0) - rss0) / (1 << 20)
+    return res, wall, fs_table.launches, delta
+
+
+def warm_up(work: Path, cube: np.ndarray, case: str, flags):
+    """One streamed sweep of a slice of the scene (two strips, full width),
+    so that what the first such sweep of a process loads or keeps (CUDA
+    modules loaded on first use, cached pinned and staging buffers of the
+    strips' sizes) is not counted in the measured sweep's RSS delta:
+    bench.py takes its row after its canonical sweeps."""
+    src = work / "warm.tif"
+    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
+    idx = work / "index_warm.json"
+    manifest.write_manifest(idx, case, "scene",
+                            [{"tile_id": "warm", "path": src}])
+    cfg = run_codec_config(["--indices", str(idx), *flags, "--outdir",
+                            str(work / "warm")])
+    cfg.stream_auto_bytes = 1   # streams without --stream-rows too
+    runner.run_sweep(cfg)
+    shutil.rmtree(work / "warm")
+    src.unlink()
+
+
+def strip_streams(bit_dir: Path) -> dict:
+    """A streamed run's kept streams under the names the whole-cube run
+    gives them: s{y0}_t_x{x}_y{y}.ext is tile (x, y0 + y) of the scene."""
+    out = {}
+    for f in sorted(bit_dir.iterdir()):
+        strip, name = f.name.split("_", 1)
+        head, ext = name.rsplit(".", 1)
+        tx, ty = head.split("_")[1:3]
+        y = int(strip[1:]) + int(ty[1:])
+        out[f"t_{tx}_y{y:05d}.{ext}"] = f.read_bytes()
+    return out
+
+
+def same_rows(got, want, tag, skip=("hbm_",)):
+    """Two CSVs' rows: equal in every column but the wall-clock, memory
+    and device-peak ones."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} rows != {len(want)}")
+    for g, w in zip(got, want):
+        for col in w:
+            if col.startswith(("t_", "mem_") + tuple(skip)) and \
+                    not col.startswith("t_link_tile_s"):
+                continue
+            if g.get(col) != w[col]:
+                raise AssertionError(f"{tag}: {col} {g.get(col)} != {w[col]}")
+
+
+def equal_to_source(recon_tif: Path, src: np.ndarray, rows=1024) -> bool:
+    """recon.tif == the source, read back strip by strip."""
+    with tiff.open(recon_tif) as ds:
+        for y0 in range(0, ds.height, rows):
+            win = tiff.Window(col_off=0, row_off=y0, width=ds.width,
+                              height=min(rows, ds.height - y0))
+            if not np.array_equal(ds.read(window=win),
+                                  src[:, y0:y0 + win.height]):
+                return False
+    return True
+
+
+def run_stream512(work: Path, card):
+    """Phase 9a: bench.py's ccsds121_stream512 scene row on the card, its
+    host RSS delta under bench.py's 500 MB, held to the same scene run
+    whole-cube: rows, recon == source; then the row again with
+    --keep-bitstream, every tile's stream equal to the whole-cube run's.
+    Returns K1's launches (0: a 4x512² tile is below one plan chunk, so it
+    stays on the serial coder)."""
+    scene = make_scene(np.random.default_rng(2026))
+    src = work / "caseA_scene_12in16.tif"
+    tiff.write_geotiff(src, scene, blockxsize=512, blockysize=512)
+    idx = work / "index_scene.json"
+    manifest.write_manifest(idx, "caseA", "scene",
+                            [{"tile_id": "sceneA", "path": src}])
+    argv = ["--indices", str(idx), "--codec", "ccsds121", "--rate-key",
+            "none", "--reps", "1", "--preproc", "none", "--nbit", "16",
+            "--interleave", "bip", "--tile", "512", "--device", "cuda",
+            "--stream-rows", "512"]
+    warm_up(work, scene[:, :1024], "caseA", argv[2:])
+    res, wall, k1, rss = measured_sweep(
+        argv + ["--outdir", str(work / "s512")])
+    (phase,) = res["phases"]
+    if phase.get("rows") != 512:
+        raise AssertionError(f"9a did not stream in 512-row strips: {phase}")
+    wres, wwall, wk1, wrss = measured_sweep(
+        argv[:-2] + ["--keep-bitstream", "--outdir", str(work / "whole")])
+    _, _, kk1, _ = measured_sweep(
+        argv + ["--keep-bitstream", "--outdir", str(work / "kept")])
+    if k1 or wk1 or kk1:
+        raise AssertionError(f"9a: K1 launched {k1} / {wk1} / {kk1} times, "
+                             f"expected 0 (tiles below one plan chunk)")
+    if rss >= 500:
+        raise AssertionError(f"9a: RSS delta {rss:.0f} MB, not bounded "
+                             f"(now {rss_parts()})")
+    got = read_rows(work / "s512" / "metrics.csv")
+    same_rows(got, read_rows(work / "whole" / "metrics.csv"), "9a")
+    if (got[0]["lossless"], got[0]["max_abs_err"]) != ("1", "0"):
+        raise AssertionError(f"9a: not lossless: {got[0]}")
+    run = Path("sceneA") / "norate" / "rep_01"
+    if not equal_to_source(work / "s512" / run / "recon.tif", scene):
+        raise AssertionError("9a: streamed recon.tif != the scene")
+    streamed = strip_streams(work / "kept" / run / "bit")
+    whole = kept_streams(work / "whole" / run)
+    if streamed != whole:
+        raise AssertionError(f"9a: strip streams != whole-cube streams "
+                             f"({len(streamed)} / {len(whole)} files)")
+    n = scene.size
+    log(f"[stream] 9a ccsds121_stream512: wall {wall:.2f} s, "
+        f"{n / wall / 1e6:.1f} Msamples/s, RSS delta {rss:.1f} MB, "
+        f"{-(-scene.shape[1] // 512)} strips, {len(streamed)} tile streams "
+        f"({sum(map(len, streamed.values()))} B) == whole-cube; whole-cube "
+        f"run (streams kept) {wwall:.2f} s, RSS delta {wrss:.1f} MB; t_comp_s "
+        f"{got[0]['t_comp_s']}, t_dec_s {got[0]['t_dec_s']} on {card}")
+    return k1
+
+
+def run_caseb_stream(work: Path, card):
+    """Phase 9b: a 180 x 4096 x 1024 Case B scene (1.5 GB) that streams by
+    itself, through the anchor's CCSDS-121 flags and through CCSDS-123
+    (`ls`), streams kept: lossless, recon.tif == the source, every stream
+    equal to a whole-cube run of the same scene (``stream_auto_bytes``
+    raised, --no-artifacts), the RSS delta below the whole-cube run's, K1
+    counted. Returns ({path: K1 launches}, the scene)."""
+    t0 = time.perf_counter()
+    cube = make_caseb_scene(np.random.default_rng(2026), BANDS, SCENE_B_ROWS,
+                            SCENE_B_COLS, "cuda")
+    src = work / "caseB_scene.tif"
+    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
+    idx = work / "index_caseB_scene.json"
+    manifest.write_manifest(idx, "caseB", "scene",
+                            [{"tile_id": "sceneB", "path": src}])
+    log(f"[stream] 9b scene {cube.shape} ({cube.nbytes / 1e9:.2f} GB) made "
+        f"and written in {time.perf_counter() - t0:.1f} s")
+    tiles = -(-SCENE_B_ROWS // SIZE) * -(-SCENE_B_COLS // SIZE)
+    per_tile = {"ccsds121": -(-BANDS * SIZE * SIZE // PLAN_CHUNK),
+                "ccsds123": -(-BANDS * SIZE * SIZE // PACK_CHUNK)}
+    codecs = {"ccsds121": ["--codec", "ccsds121", "--preproc", "none",
+                           "--nbit", "16", "--interleave", "bip", "--tile",
+                           "512"],
+              "ccsds123": ["--codec", "ccsds123"]}
+    run = Path("sceneB") / "norate" / "rep_01"
+    counts = {}
+    for name, flags in codecs.items():
+        argv = ["--indices", str(idx), "--rate-key", "none", "--reps", "1",
+                "--keep-bitstream", "--device", "cuda", *flags]
+        warm_up(work, cube[:, :2 * STRIP_ROWS_AUTO], "caseB", argv[2:])
+        res, wall, k1, rss = measured_sweep(
+            argv + ["--outdir", str(work / f"s_{name}")])
+        (phase,) = res["phases"]
+        if phase.get("rows") != STRIP_ROWS_AUTO:
+            raise AssertionError(f"9b {name}: did not stream by itself: "
+                                 f"{phase}")
+        (row,) = read_rows(work / f"s_{name}" / "metrics.csv")
+        if (row["lossless"], row["max_abs_err"]) != ("1", "0"):
+            raise AssertionError(f"9b {name}: not lossless: {row}")
+        t1 = time.perf_counter()
+        if not equal_to_source(work / f"s_{name}" / run / "recon.tif", cube):
+            raise AssertionError(f"9b {name}: streamed recon.tif != scene")
+        log(f"[stream] 9b {name}: recon.tif == scene, read back in "
+            f"{time.perf_counter() - t1:.1f} s")
+
+        whole = {}
+
+        def whole_cube(cfg):
+            # no artifacts, so the kept streams are taken from the codec's
+            # results as the runner receives them
+            cfg.stream_auto_bytes = 1 << 40
+            sweep = cfg.codec.sweep_rates
+
+            def keeping(*a, **kw):
+                out = sweep(*a, **kw)
+                whole.update(out[0].bitstreams)
+                return out
+            cfg.codec.sweep_rates = keeping
+        wres, wwall, wk1, wrss = measured_sweep(
+            argv + ["--no-artifacts", "--outdir", str(work / f"w_{name}")],
+            whole_cube)
+        if "codec_s" not in wres["phases"][0]:
+            raise AssertionError(f"9b {name}: the whole-cube run streamed")
+        streamed = strip_streams(work / f"s_{name}" / run / "bit")
+        if streamed != whole or len(whole) != tiles:
+            raise AssertionError(f"9b {name}: strip streams != whole-cube "
+                                 f"streams ({len(streamed)}/{len(whole)})")
+        want = per_tile[name] * tiles
+        if not k1 == wk1 == want:
+            raise AssertionError(f"9b {name}: K1 launched {k1} (streamed), "
+                                 f"{wk1} (whole), expected {want}")
+        if rss >= wrss:
+            raise AssertionError(f"9b {name}: RSS delta {rss:.0f} MB not "
+                                 f"below the whole-cube run's {wrss:.0f}")
+        (wrow,) = read_rows(work / f"w_{name}" / "metrics.csv")
+        log(f"[stream] 9b {name}: streamed wall {wall:.2f} s "
+            f"({cube.size / wall / 1e6:.1f} Msamples/s), "
+            f"{-(-SCENE_B_ROWS // STRIP_ROWS_AUTO)} strips, t_comp_s "
+            f"{row['t_comp_s']}, t_dec_s {row['t_dec_s']}, hbm_peak_mb "
+            f"{row.get('hbm_peak_mb')}, RSS delta {rss:.1f} MB, "
+            f"{row['bitstream_bytes']} B in {tiles} tile streams == "
+            f"whole-cube; whole-cube run {wwall:.2f} s, t_comp_s "
+            f"{wrow['t_comp_s']}, t_dec_s {wrow['t_dec_s']}, hbm_peak_mb "
+            f"{wrow.get('hbm_peak_mb')}, RSS delta {wrss:.1f} MB; {k1} K1 "
+            f"launches each on {card}")
+        counts[f"caseB_scene_stream_{name}"] = k1
+        counts[f"caseB_scene_whole_{name}"] = wk1
+        for d in (f"s_{name}", f"w_{name}"):
+            shutil.rmtree(work / d)
+    device_busy([
+        "--indices", str(idx), "--codec", "ccsds123", "--rate-key", "none",
+        "--reps", "1", "--no-artifacts", "--outdir", str(work / "traced"),
+        "--device", "cuda"], card, "stream 9b ccsds123")
+    shutil.rmtree(work / "traced")
+    return counts, cube
+
+
+def run_stream_metrics(work: Path, scene: np.ndarray, card):
+    """Phase 9c: a 32 x 1280 x 512 crop of 9b's scene with a NoData stripe
+    and a user mask, its noisy recon pre-seeded (the resume path), streamed
+    in 512-row strips on the card and on the CPU: integers and the ERR8 and
+    RGB8 quicklooks exact, PSNR/SSIM within rel 1e-5, SAM/SID/LMSE within
+    rel 1e-4."""
+    crop = np.ascontiguousarray(scene[:32, :1280, :512])
+    nodata = -32768
+    crop[:, :64] = nodata
+    crop[:, 400:432, :100] = nodata
+    src = work / "crop.tif"
+    tiff.write_geotiff(src, crop, nodata=nodata)
+    mask = np.ones(crop.shape[1:], np.uint8)
+    mask[:80] = 0
+    mask[:, :16] = 0
+    tiff.write_geotiff(work / "crop_mask.tif", mask, nodata=0)
+    idx = work / "index_crop.json"
+    manifest.write_manifest(idx, "caseB", "scene", [
+        {"tile_id": "CR", "path": src, "mask": work / "crop_mask.tif"}])
+    rng = np.random.default_rng(7)
+    noisy = (crop.astype(np.int32)
+             + rng.integers(-12, 12, crop.shape)).astype(np.int16)
+    rows, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = work / dev / "CR" / "norate" / "rep_01"
+        d.mkdir(parents=True)
+        tiff.write_geotiff(d / "recon.tif", noisy)
+        t0 = time.perf_counter()
+        run_codec(["--indices", str(idx), "--codec", "ccsds121",
+                   "--rate-key", "none", "--reps", "1", "--stream-rows",
+                   "512", "--ql-rgb", "--ql-err-zoom", "15", "--outdir",
+                   str(work / dev), "--device", dev])
+        walls[dev] = time.perf_counter() - t0
+        (rows[dev],) = read_rows(work / dev / "metrics.csv")
+    got, want = rows["cuda"], rows["cpu"]
+    if not (math.isfinite(num(got["sam_deg"])) and num(got["lmse"]) > 0
+            and got["lossless"] == "0"):
+        raise AssertionError(f"9c: trivial metrics: {got}")
+    worst = {}
+    for col, w in want.items():
+        if col.startswith(("t_", "mem_", "hbm_")) and \
+                not col.startswith("t_link_tile_s"):
+            continue
+        tol = (1e-5 if col.startswith(("psnr", "ssim")) else
+               1e-4 if col.startswith(("sam_deg", "sid", "lmse")) else None)
+        if tol is None:
+            if got[col] != w:
+                raise AssertionError(f"9c: {col} CUDA {got[col]} != CPU {w}")
+            continue
+        a, b = num(w), num(got[col])
+        rel = abs(a - b) / abs(a) if a else abs(b)
+        worst[col.split("_b")[0]] = max(worst.get(col.split("_b")[0], 0), rel)
+        if rel > tol:
+            raise AssertionError(f"9c: {col} CUDA {b} vs CPU {a}: rel {rel}")
+    run = Path("CR") / "norate" / "rep_01"
+    for name in ("recon_ERR8_0_255.tif", "recon_ERR8_0_15.tif",
+                 "baseline_RGB8.tif", "recon_RGB8.tif"):
+        if (work / "cuda" / run / name).read_bytes() != \
+                (work / "cpu" / run / name).read_bytes():
+            raise AssertionError(f"9c: {name} CUDA != CPU")
+    log(f"[stream] 9c CUDA == CPU on the crop (32 x 1280 x 512, 3 strips): "
+        f"SAM {got['sam_deg']} deg, PSNR {got['psnr_global']} dB; worst "
+        f"rel {worst}; quicklooks byte-equal; wall CUDA {walls['cuda']:.2f} "
+        f"s, CPU {walls['cpu']:.2f} s on {card}")
+
+
+def same_outputs(a: Path, b: Path, tag: str, differ=None) -> int:
+    """Every file of two pipeline runs byte for byte (a manifest up to its
+    output directory; the error map ``differ`` of another mode by name
+    only); returns the file count."""
+    fa = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    fb = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    if differ:
+        fb = sorted(Path(differ) if "scene_ERR_" in p.name else p
+                    for p in fb)
+    if fa != fb or not fa:
+        raise AssertionError(f"{tag}: files differ: {fa} / {fb}")
+    for rel in fa:
+        if rel.name == differ:
+            continue
+        x, y = (a / rel).read_bytes(), (b / rel).read_bytes()
+        if rel.suffix == ".json":
+            x, y = (x.replace(str(a).encode(), b"OUT"),
+                    y.replace(str(b).encode(), b"OUT"))
+        if x != y:
+            raise AssertionError(f"{tag}: {rel} CUDA != CPU")
+    return len(fa)
+
+
+def enmap_products(raw: Path, rng):
+    """Two adjacent synthetic EnMAP products of 224 bands x 1000 x 1000
+    int16 (NoData -32768 in a corner), with metadata XML (wavelengths, two
+    bad bands, the quality-flag bits), QUALITY_TESTFLAGS (cloud rows) and
+    PIXELMASK (defect columns): tests/test_pipelines.py's layout at full
+    size."""
+    raw.mkdir()
+    nb, n = ENMAP_BANDS, ENMAP_SIZE
+    gains = 0.6 + 0.8 * np.abs(np.sin(np.linspace(0.3, 5.8, nb)))
+    for k, x0 in (("001", 600000.0), ("002", 600000.0 + 30.0 * n)):
+        tr = (30.0, 0.0, x0, 0.0, -30.0, 4700000.0)
+        spatial = rng.integers(500, 6500, (n, n)).astype(np.float64)
+        cube = np.empty((nb, n, n), np.int16)
+        for b in range(nb):
+            cube[b] = np.clip(spatial * gains[b]
+                              + rng.integers(-40, 40, (n, n)), -8192, 8191)
+        cube[:, :50, :50] = -32768
+        tiff.write_geotiff(raw / f"ENMAP-DT01-{k}-SPECTRAL_IMAGE.TIF", cube,
+                           transform=tr, nodata=-32768)
+        flags = np.zeros((1, n, n), np.uint16)
+        flags[0, 100:160] = 0b10
+        tiff.write_geotiff(raw / f"ENMAP-DT01-{k}-QL_QUALITY_TESTFLAGS.TIF",
+                           flags, transform=tr)
+        pixm = np.zeros((1, n, n), np.uint8)
+        pixm[0, :, 700:705] = 1
+        tiff.write_geotiff(raw / f"ENMAP-DT01-{k}-QL_PIXELMASK.TIF", pixm,
+                           transform=tr)
+    bands = "\n".join(
+        f"<bandID number='{i + 1}'><wavelengthCenterOfBand>"
+        f"{420 + 9.5 * i:.1f}</wavelengthCenterOfBand><badBand>"
+        f"{1 if i in (60, 61) else 0}</badBand></bandID>" for i in range(nb))
+    (raw / "ENMAP-DT01-METADATA.XML").write_text(
+        f"<root><bands>{bands}</bands>"
+        "<flagBit index='1' meaning='quality cloud'/>"
+        "<flagBit index='2' meaning='quality cloud shadow'/></root>")
+
+
+def run_pipelines(work: Path, card):
+    """Phase 9d: make-baseline-a and make-baseline-b through the CLI on the
+    card and with --device cpu, every output file byte for byte. Case A:
+    four synthetic 10,980² uint16 bands (a Sentinel-2 10 m band's size),
+    the defaults (2000 x 10000 scene, HC 300,688, LC 488,7012). Case B: two
+    synthetic 224-band 1000² products -> 180 bands, --k 2; the default
+    --err-mode on both devices, the other four on the card, each one's
+    error map held to the CPU's (a CPU run of every mode took 14-21 s); the
+    mosaic is 1000 x 2000, so the tiles sit at LC 580,400 and HC 1400,64
+    (the reference's 580,5620 and 2000,1536 lie outside it)."""
+    from contextlib import redirect_stdout
+    from tpukit_torch.cli.main import main as cli_main
+
+    def cli(argv):
+        # the commands print their outputs as JSON: to the log, so that
+        # this script's stdout keeps its three result lines
+        with redirect_stdout(sys.stderr):
+            return cli_main(argv)
+    rng = np.random.default_rng(2026)
+    t0 = time.perf_counter()
+    bands = []
+    tr = (10.0, 0.0, 600000.0, 0.0, -10.0, 5000040.0)
+    for name in ("B02", "B03", "B04", "B08"):
+        p = work / f"T33UUP_{name}_10m.tif"
+        tiff.write_geotiff(p, rng.integers(0, 20000, (1, S2_SIZE, S2_SIZE),
+                                           dtype=np.uint16), transform=tr)
+        bands.append(str(p))
+    made = time.perf_counter() - t0
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        if cli(["make-baseline-a", "--bands", *bands, *CASEA_FLAGS,
+                "--outdir", str(work / f"A_{dev}"), "--device", dev]) != 0:
+            raise AssertionError(f"make-baseline-a --device {dev} failed")
+        walls[f"A {dev}"] = time.perf_counter() - t0
+    n_a = same_outputs(work / "A_cuda", work / "A_cpu", "9d Case A")
+    for p in bands:
+        Path(p).unlink()
+    t0 = time.perf_counter()
+    enmap_products(work / "raw", rng)
+    made_b = time.perf_counter() - t0
+
+    def baseline_b(mode, dev):
+        t0 = time.perf_counter()
+        out = work / f"B_{mode}_{dev}"
+        if cli(["make-baseline-b", "--input-raw", str(work / "raw"),
+                "--output", str(out), "--dt", "DT01", "--k", "2",
+                "--err-mode", mode, *CASEB_FLAGS, "--device", dev]) != 0:
+            raise AssertionError(f"make-baseline-b {mode} {dev} failed")
+        walls[f"B {mode} {dev}"] = time.perf_counter() - t0
+        return out
+
+    # the default mode on both devices, every file; the other modes on the
+    # card, their error map (the one file the mode changes) against the
+    # CPU's map of the same scenes and mask, written by the same PNG writer
+    from PIL import Image
+    from tpukit_torch.pipelines.baseline_b import scene_error_map
+    ref = baseline_b("mean", "cpu")
+    n_b = same_outputs(baseline_b("mean", "cuda"), ref, "9d Case B mean")
+    with tiff.open(ref / "DT01_scene_180b_int16.tif") as ds:
+        cube16 = ds.read()
+    with tiff.open(ref / "DT01_scene_180b_14in16.tif") as ds:
+        cube14 = ds.read()
+    with tiff.open(ref / "DT01_scene_mask_uint8.tif") as ds:
+        valid = ds.read(1) > 0
+    for mode in ERR_MODES:
+        if mode == "mean":
+            continue
+        got = baseline_b(mode, "cuda")
+        name = f"DT01_scene_180b_14in16.scene_ERR_{mode}.png"
+        u8, _ = scene_error_map(cube16, cube14, valid, mode, 2,
+                                device="cpu")
+        Image.fromarray(u8).save(work / name)
+        if (work / name).read_bytes() != (got / name).read_bytes():
+            raise AssertionError(f"9d Case B {mode}: {name} CUDA != CPU")
+        same_outputs(got, work / "B_mean_cuda", f"9d Case B {mode}",
+                     differ=name)
+        shutil.rmtree(got)
+    log(f"[pipelines] 9d CUDA == CPU, byte for byte: Case A {n_a} files, "
+        f"Case B {n_b} files (mean); the {len(ERR_MODES) - 1} other error "
+        f"modes' maps == the CPU's, their other files == mean's; inputs "
+        f"made in {made:.1f} s (A) and {made_b:.1f} s (B); walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f" on {card}")
+
+
+def run_phase9(card):
+    """Phase 9; returns K1's launch counts by path."""
+    t9 = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        k1_512 = run_stream512(work, card)
+        times["9a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        counts, scene = run_caseb_stream(work, card)
+        times["9b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_stream_metrics(work / "crop", scene, card)
+        del scene
+        times["9c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_pipelines(work / "pipelines", card)
+        times["9d"] = time.perf_counter() - t0
+    log(f"[stream] phase 9 in {time.perf_counter() - t9:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()) + ")")
+    return {"scene_stream512": k1_512, **counts}
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -1740,6 +2301,9 @@ def main():
     # phase 8: CCSDS-122 and the kept streams of the J2K device mode
     p8 = run_phase8(tiles, cube, dev, card)
 
+    # phase 9: scene streaming, the strip metrics and the baseline pipelines
+    p9 = run_phase9(card)
+
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
     if jax_loaded:
@@ -1774,7 +2338,7 @@ def main():
                "device_rate_fit": fit_k1,
                "packer_anchor_stream": pack_anchor_k1,
                "packer_mapped_residuals": pack_mapped_k1,
-               "ccsds123_sweep": c123_k1, **p8["k1"]}),
+               "ccsds123_sweep": c123_k1, **p8["k1"], **p9}),
         entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
               "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
               (32, 1024, 1024),

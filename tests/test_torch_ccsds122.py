@@ -58,7 +58,8 @@ def test_sweep_rates_equals_tpukit(cubes, entropy, dtype, ladder, keep):
     want = jc.CCSDS122Codec(entropy).sweep_rates(
         cube, dtype, [JRate.of(key, v) for v in values], keep_bitstream=keep)
     got = tc.CCSDS122Codec(entropy).sweep_rates(
-        cube, dtype, [TRate.of(key, v) for v in values], keep_bitstream=keep)
+        cube, dtype, [TRate.of(key, v) for v in values], keep_bitstream=keep,
+        device="cpu")
     assert len(got) == len(want) == len(values)
     for w, g in zip(want, got):
         assert g.bitstream_bytes == w.bitstream_bytes
@@ -85,11 +86,11 @@ def test_run_equals_sweep_and_band_groups_do_not_matter(cubes, entropy,
     cube = cubes["uint16"]
     specs = [TRate.of("bpp", 1.0), TRate.of("bpp", 2.5)]
     codec = tc.CCSDS122Codec(entropy)
-    whole = codec.sweep_rates(cube, "uint16", specs)
+    whole = codec.sweep_rates(cube, "uint16", specs, device="cpu")
     monkeypatch.setattr(tc, "band_group", lambda B, per, dev: 2)
-    grouped = codec.sweep_rates(cube, "uint16", specs)
+    grouped = codec.sweep_rates(cube, "uint16", specs, device="cpu")
     for spec, w, g in zip(specs, whole, grouped):
-        one = codec.run(cube, "uint16", spec)
+        one = codec.run(cube, "uint16", spec, device="cpu")
         assert one.bitstream_bytes == w.bitstream_bytes == g.bitstream_bytes
         assert torch.equal(one.recon, w.recon)
         assert torch.equal(g.recon, w.recon)
@@ -101,7 +102,8 @@ def test_golden_bpe_vectors_reproduced(tag, bpp):
         expected = json.load(f)[f"ccsds122_{tag}.bpe"]
     tile = np.load(os.path.join(VEC, expected["input"]))
     res = tc.CCSDS122Codec(entropy="bpe").run(
-        tile, "uint16", TRate.of("bpp", bpp), keep_bitstream=True)
+        tile, "uint16", TRate.of("bpp", bpp), keep_bitstream=True,
+        device="cpu")
     (stream,) = res.bitstreams.values()
     with open(os.path.join(VEC, f"ccsds122_{tag}.bpe"), "rb") as f:
         golden = f.read()
@@ -120,13 +122,14 @@ def test_kept_streams_decode_to_the_recon(cubes):
     Hp, Wp = 40, 56
     spec = [TRate.of("bpp", 2.0), TRate.of("bpp", 16.0)]
     for res in tc.CCSDS122Codec("bpe").sweep_rates(cube, "uint16", spec,
-                                                   keep_bitstream=True):
+                                                   keep_bitstream=True,
+                                                   device="cpu"):
         planes = np.stack([tb.decode_plane(s, Hp, Wp)
                            for _, s in sorted(res.bitstreams.items())])
         rec = tdwt.idwt2(torch.from_numpy(planes), "97m", 3)[:, :H, :W]
         assert torch.equal(rec.clamp(0, 65535).to(torch.uint16), res.recon)
     lossy, lossless = tc.CCSDS122Codec("embedded").sweep_rates(
-        cube, "uint16", spec, keep_bitstream=True)
+        cube, "uint16", spec, keep_bitstream=True, device="cpu")
     order = twc.scan_order(Hp, Wp, 3)
     segb = twc.subband_seg_bounds(Hp, Wp, 3)
     wmap = tc.subband_weight_map(Hp, Wp).reshape(-1)
@@ -155,13 +158,13 @@ def test_a_stream_that_disagrees_with_the_model_raises(cubes, monkeypatch):
                         lambda *a, **kw: encode(*a, **kw) + b"\0")
     with pytest.raises(RuntimeError, match="disagrees with the native"):
         tc.CCSDS122Codec("bpe").run(cube, "int16", TRate.of("bpp", 2.0),
-                                    keep_bitstream=True)
+                                    keep_bitstream=True, device="cpu")
     bpc = twc.bpc_encode
     monkeypatch.setattr(twc, "bpc_encode",
                         lambda *a, **kw: bpc(*a, **kw)[:-1])
     with pytest.raises(RuntimeError, match="disagrees with the host"):
         tc.CCSDS122Codec("embedded").run(cube, "int16", TRate.of("bpp", 2.0),
-                                         keep_bitstream=True)
+                                         keep_bitstream=True, device="cpu")
 
 
 def test_codec_surface_equals_tpukit(cubes):
@@ -191,7 +194,8 @@ def test_codec_surface_equals_tpukit(cubes):
 def test_mesh_is_refused_with_its_item(cubes, entropy):
     with pytest.raises(NotImplementedError, match="item 21"):
         tc.CCSDS122Codec(entropy).sweep_rates(
-            cubes["uint16"], "uint16", [TRate.of("bpp", 1.0)], mesh=object())
+            cubes["uint16"], "uint16", [TRate.of("bpp", 1.0)], mesh=object(),
+            device="cpu")
 
 
 def test_device_functions_equal_tpukit(cubes):

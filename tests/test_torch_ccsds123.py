@@ -100,7 +100,7 @@ def _run_both(monkeypatch, cube, jax_kw=None, run_kw=None, **ctor):
     replay = iter(fitted)
     codec._fit_weights = lambda feats, c: next(replay)
     got = codec.run(cube, name, RateSpec.none(), keep_bitstream=True,
-                    **(run_kw or {}))
+                    **(run_kw or {}), device="cpu")
     assert next(replay, None) is None            # every tile's fit was used
     return want, got
 
@@ -197,7 +197,7 @@ def test_codec_stream_exact_with_tpukit_weights(rng, monkeypatch, kind, tile):
 def test_trailing_zero_shift_travels_in_the_header(rng):
     cube = _cube(rng, "int16_shift2")
     res = t123.CCSDS123Codec().run(cube, "int16", RateSpec.none(),
-                                   keep_bitstream=True)
+                                   keep_bitstream=True, device="cpu")
     (bs,) = res.bitstreams.values()
     assert bs[:6] == b"TK123\x02" and bs[6] == 2      # '<B' shift
     np.testing.assert_array_equal(res.recon.numpy(), cube)
@@ -216,7 +216,7 @@ def test_own_fit_lossless_and_close_to_tpukit(rng, kind):
     name = str(cube.dtype)
     want = j123.CCSDS123Codec().run(cube, name, JRate.none())
     got = t123.CCSDS123Codec().run(cube, name, RateSpec.none(),
-                                   keep_bitstream=True)
+                                   keep_bitstream=True, device="cpu")
     np.testing.assert_array_equal(got.recon.numpy(), cube)
     np.testing.assert_array_equal(np.asarray(want.recon), cube)
     assert abs(got.bitstream_bytes - want.bitstream_bytes) \
@@ -297,7 +297,7 @@ def test_crop_nodata(rng, monkeypatch, by):
         assert isinstance(got.recon, np.ndarray) and not got.recon.any()
     # the run-time flag does what the constructor's does
     via_opt = t123.CCSDS123Codec(tile=tile).run(
-        cube, "int16", RateSpec.none(), crop_nodata=True, **kw)
+        cube, "int16", RateSpec.none(), crop_nodata=True, **kw, device="cpu")
     assert via_opt.extras["tiles_skipped_nodata"] == skipped
 
 
@@ -310,17 +310,19 @@ def test_device_cube_reuse_matches_host_upload(rng, dtype):
         rng.integers(0, 65536, (6, 16, 16)).astype(np.uint16)
     dev = torch.from_numpy(cube.copy())
     base = t123.CCSDS123Codec().run(cube, dtype, RateSpec.none(),
-                                    keep_bitstream=True)
+                                    keep_bitstream=True, device="cpu")
     via = t123.CCSDS123Codec().run(cube, dtype, RateSpec.none(),
-                                   keep_bitstream=True, device_cube=dev)
+                                   keep_bitstream=True, device_cube=dev,
+                                   device="cpu")
     assert base.bitstreams == via.bitstreams
     np.testing.assert_array_equal(via.recon.numpy(), cube)
     for other in (dev[:, :8, :8], dev.to(torch.float32) + 0.25):
         res = t123.CCSDS123Codec().run(cube, dtype, RateSpec.none(),
-                                       keep_bitstream=True, device_cube=other)
+                                       keep_bitstream=True, device_cube=other,
+                                       device="cpu")
         assert res.bitstreams == base.bitstreams
     ring = cube.view(np.uint16).astype(np.int32)
-    for opts in ({}, {"device_cube": dev}):
+    for opts in ({"device": "cpu"}, {"device_cube": dev}):
         work = device_work(cube, opts, 1, "uint16")
         assert work.dtype == torch.int32
         np.testing.assert_array_equal(work.numpy(), ring)
@@ -375,7 +377,7 @@ def test_standard_streams_equal_tpukit(rng, case, dtype):
     want = j123.CCSDS123Codec(**kw).run(cube, dtype, JRate.none(),
                                         keep_bitstream=True)
     got = create("ccsds123_ext", **kw).run(cube, dtype, RateSpec.none(),
-                                           keep_bitstream=True)
+                                           keep_bitstream=True, device="cpu")
     assert got.bitstreams == want.bitstreams
     assert all(k.endswith(".l123") for k in got.bitstreams)
     assert (got.codec, got.encoder, got.extras, got.bitstream_bytes) == \
@@ -429,8 +431,9 @@ def test_spectral_predictor_beats_1d_coder(rng):
     """The port's CCSDS-123 stream is well below its CCSDS-121 + diff1
     stream on a spectrally correlated cube, as tpukit's is."""
     cube = _smooth(rng)
-    r123 = create("ccsds123", tile=64).run(cube, "int16", RateSpec.none())
+    r123 = create("ccsds123", tile=64).run(cube, "int16", RateSpec.none(),
+                                           device="cpu")
     r121 = create("ccsds121", preproc="diff1", interleave="bsq",
-                  tile=64).run(cube, "int16", RateSpec.none())
+                  tile=64).run(cube, "int16", RateSpec.none(), device="cpu")
     np.testing.assert_array_equal(r123.recon.numpy(), cube)
     assert r123.bitstream_bytes < r121.bitstream_bytes * 0.92

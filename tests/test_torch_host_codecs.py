@@ -61,7 +61,7 @@ def test_jpegls_lossless_equals_tpukit(rng, dtype, preproc):
     want = jjls.JPEGLSCodec(preproc=preproc).run(cube, dtype, JRate.none(),
                                                  keep_bitstream=True)
     got = create("jpegls_subproc", preproc=preproc).run(
-        cube, dtype, RateSpec.none(), keep_bitstream=True)
+        cube, dtype, RateSpec.none(), keep_bitstream=True, device="cpu")
     _same_result(got, want, cube)
     np.testing.assert_array_equal(got.recon, cube)
     assert got.extras["preproc"] == preproc
@@ -80,7 +80,7 @@ def test_jpegls_rates_equal_tpukit(rng, key, value):
     want = jjls.JPEGLSCodec().run(cube, "int16", JRate.of(key, value),
                                   keep_bitstream=True)
     got = tjls.JPEGLSCodec().run(cube, "int16", RateSpec.of(key, value),
-                                 keep_bitstream=True)
+                                 keep_bitstream=True, device="cpu")
     _same_result(got, want, cube)
     near = got.extras["nearlossless_eps"]
     assert near == tjls.derive_near(RateSpec.of(key, value), cube[0], "int16") \
@@ -98,7 +98,8 @@ def test_jpegls_near_disables_diff1(rng, capsys):
     want = jjls.JPEGLSCodec(preproc="diff1").run(
         cube, "int16", JRate.of("nearlossless_eps", 4), keep_bitstream=True)
     got = tjls.JPEGLSCodec(preproc="diff1").run(
-        cube, "int16", RateSpec.of("nearlossless_eps", 4), keep_bitstream=True)
+        cube, "int16", RateSpec.of("nearlossless_eps", 4), keep_bitstream=True,
+        device="cpu")
     _same_result(got, want, cube)
     assert got.extras["preproc"] == "none"
     assert capsys.readouterr().err.count("Disabling spectral diff1") == 2
@@ -130,7 +131,8 @@ def test_png_default_writer_equals_tpukit(rng, dtype, zlevel):
     want = jpng.PNGCodec(zlevel=zlevel).run(cube, dtype, JRate.none(),
                                             keep_bitstream=True)
     got = create("png_lossless", zlevel=zlevel).run(
-        cube, dtype, RateSpec.of("quality", 50), keep_bitstream=True)  # ignored
+        cube, dtype, RateSpec.of("quality", 50), keep_bitstream=True,
+        device="cpu")  # ignored
     _same_result(got, want, cube)
     np.testing.assert_array_equal(got.recon, cube)
     assert sorted(got.bitstreams) == [f"b{i:02d}.png" for i in range(1, 6)]
@@ -149,7 +151,7 @@ def test_png_compat_writer_equals_tpukit(rng, dtype):
     want = jpng.PNGCodec(writer="compat").run(cube, dtype, JRate.none(),
                                               keep_bitstream=True)
     got = tpng.PNGCodec(writer="compat").run(cube, dtype, RateSpec.none(),
-                                             keep_bitstream=True)
+                                             keep_bitstream=True, device="cpu")
     _same_result(got, want, cube)
     np.testing.assert_array_equal(got.recon, cube)
     assert got.extras["writer"] == "compat"

@@ -13,6 +13,9 @@ by function, since the rest of that module is torch code),
 the same seeded inputs go through both packages: the writers give byte-equal
 files, the native library is built from the port's own sources and codes as
 tpukit's does, and chip_smoke.py's input recipes give bench.py's arrays.
+The definitions the port's torch modules keep as tpukit's text (``RangeScan``,
+the float64 strip merges, ``stream_plan``, the pipelines' host functions)
+are held to it one by one.
 """
 
 import importlib.util
@@ -337,6 +340,58 @@ def test_native_library_is_the_ports_own_and_codes_as_tpukits():
             t_ck.decode(stream, x.size, bits, block, rsi), x)
         np.testing.assert_array_equal(
             j_ck.decode(stream, x.size, bits, block, rsi), x)
+
+
+# functions and classes of tpukit's modules that the port's modules keep
+# as their text (the package name in the imports apart)
+COPIED_DEFS = {
+    "io/bitdepth.py": ["class RangeScan", "def effective_data_range"],
+    "metrics/quality.py": ["def merge_quality_stats", "def assemble_quality",
+                           "def _psnr_from", "def _ssim_from"],
+    "metrics/spectral.py": ["def merge_spectral_stats",
+                            "def assemble_spectral_many"],
+    "sweep/streaming.py": ["def stream_plan"],
+    "pipelines/baseline_a.py": ["def write_window_stack", "def cut_tile"],
+    "pipelines/baseline_b.py": [
+        "def parse_metadata", "def pick_bands", "def lambdas_from_descriptions",
+        "def nearest_band", "def mosaic", "def _wb_gains", "def _wb_apply",
+        "def _wb_whitepatch", "def _wb_grayworld", "def rgb_joint",
+        "def _natural_key", "def _find", "def find_bit"],
+}
+
+
+def _def_source(path: Path, head: str) -> str:
+    m = re.search(r"^%s\b.*?(?=^\S|\Z)" % re.escape(head),
+                  path.read_text(), flags=re.S | re.M)
+    assert m, (path, head)
+    return " ".join(m.group(0).replace("tpukit_torch", "tpukit").split())
+
+
+@pytest.mark.parametrize("rel,head", [(rel, head) for rel, heads in
+                                      sorted(COPIED_DEFS.items())
+                                      for head in heads])
+def test_copied_definitions_are_tpukits_text(rel, head):
+    assert _def_source(REPO / "tpukit_torch" / rel, head) == \
+        _def_source(REPO / "tpukit" / rel, head)
+
+
+def test_chip_smoke_scene_recipe_equals_bench():
+    """chip_smoke.make_scene is the scene recipe inlined in bench.py's main
+    (the lines from its mgrid to its 12-in-16 shift), at a small size."""
+    smoke = _load("chip_smoke_for_scene", REPO / "chip_smoke.py")
+    text = (REPO / "bench.py").read_text()
+    m = re.search(r"^( *)gy, gx = np\.mgrid\[0:sc_h, 0:sc_w\]\n.*?<< 4\n",
+                  text, flags=re.S | re.M)
+    assert m and "scube" in m.group(0)
+    recipe = "\n".join(line[len(m.group(1)):]
+                       for line in m.group(0).splitlines())
+    for shape in ((4, 48, 80), (2, 17, 33)):
+        env = {"np": np, "rng": np.random.default_rng(2026),
+               "sc_b": shape[0], "sc_h": shape[1], "sc_w": shape[2]}
+        exec(recipe, env)
+        got = smoke.make_scene(np.random.default_rng(2026), *shape)
+        assert got.dtype == env["scube"].dtype == np.uint16
+        np.testing.assert_array_equal(got, env["scube"])
 
 
 def test_chip_smoke_recipes_equal_bench():

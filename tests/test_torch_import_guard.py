@@ -5,9 +5,10 @@ A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
 small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
 the CPU), a small tiled J2K device-mode sweep, a device-mode sweep with
 kept streams, a CCSDS-122 rate ladder of each entropy backend with kept
-streams and one sweep of each of the other lossless codecs (CCSDS-123 with
-both predictors, JPEG-LS lossless and near-lossless, PNG) through the
-port's CLI, in two conditions:
+streams, one sweep of each of the other lossless codecs (CCSDS-123 with
+both predictors, JPEG-LS lossless and near-lossless, PNG), a Case B scene
+streamed in row strips (CCSDS-123 and CCSDS-121, streams kept) and a
+``make-baseline-b`` run through the port's CLI, in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used. In both, no ``jax`` and no ``tpukit``
 module may end up loaded. A source scan backs it up: no file of the port,
@@ -42,6 +43,7 @@ if sys.argv[2] == "absent":
 import numpy as np
 import chip_smoke
 from tpukit_torch.cli.main import run_codec_config
+from tpukit_torch.cli.main import main as cli_main_all
 from tpukit_torch.cli.main import run_codec_main as cli_main
 from tpukit_torch.io import manifest, tiff
 from tpukit_torch.sweep.runner import run_sweep
@@ -89,7 +91,29 @@ for tag, argv in {"ccsds123": ["--codec", "ccsds123", "--tile", "16"],
     r = run_codec_main(["--indices", f"{out}/idx.json", "--reps", "1", "--keep-bitstream",
                         "--outdir", f"{out}/runs_{tag}", "--device", "cpu", *argv])
     others[tag] = [[row["lossless"], int(row["max_abs_err"])] for row in r["rows"]]
+scene = rng.integers(0, 2000, (6, 96, 40)).astype(np.int16) << 2
+tiff.write_geotiff(f"{out}/s.tif", scene, nodata=-4)
+manifest.write_manifest(f"{out}/idxS.json", "caseB", "scene", [{"tile_id": "S", "path": f"{out}/s.tif"}])
+streamed = {}
+for codec in ("ccsds123", "ccsds121"):
+    r = run_codec_main(["--indices", f"{out}/idxS.json", "--codec", codec, "--tile", "32",
+                        "--stream-rows", "32", "--keep-bitstream", "--reps", "1",
+                        "--outdir", f"{out}/runsS_{codec}", "--device", "cpu"])
+    streamed[codec] = [r["rows"][0]["lossless"], [p["rows"] for p in r["phases"]]]
+import pathlib
+raw = pathlib.Path(f"{out}/raw")
+raw.mkdir()
+tiff.write_geotiff(raw / "ENMAP-DT01-001-SPECTRAL_IMAGE.TIF",
+                   rng.integers(-2000, 8000, (8, 32, 32)).astype(np.int16),
+                   transform=(30.0, 0.0, 6e5, 0.0, -30.0, 4.7e6), nodata=-32768)
+(raw / "ENMAP-DT01-METADATA.XML").write_text("<root><bands>" + "".join(
+    f"<bandID><wavelengthCenterOfBand>{450 + 40 * i}</wavelengthCenterOfBand></bandID>"
+    for i in range(8)) + "</bands></root>")
+rc_b = cli_main_all(["make-baseline-b", "--input-raw", str(raw), "--output", f"{out}/caseB",
+                     "--dt", "DT01", "--target-bands", "6", "--tile-size", "16",
+                     "--lc", "0,0", "--hc", "16,16", "--device", "cpu"])
 print(json.dumps({"others": others, "ccsds122": res122, "ccsds122_cli_rc": rc,
+                  "streamed": streamed, "make_baseline_b_rc": rc_b,
                   "caseA_device_kept": [r["lossless"] for r in resK["rows"]],
                   "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "tpukit": sorted(m for m in sys.modules if m == "tpukit" or m.startswith("tpukit.")),
@@ -113,6 +137,8 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                    "caseA_device_tiled": [0], "caseA_device_kept": [0, 0],
                    "ccsds122": {"bpe": [0, 1], "embedded": [0, 1]},
                    "ccsds122_cli_rc": 0,
+                   "streamed": {"ccsds123": [1, [32]], "ccsds121": [1, [32]]},
+                   "make_baseline_b_rc": 0,
                    "others": {"ccsds123": [[1, 0]], "ccsds123_standard": [[1, 0]],
                               "jpegls": [[1, 0]], "jpegls_near": [[0, 2]],
                               "png": [[1, 0]]}}

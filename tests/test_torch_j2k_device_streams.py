@@ -71,7 +71,8 @@ def _both(cube, case, keep=True):
     want = jj2k.J2KCodec(entropy="device", **opts).sweep_rates(
         cube, "uint16", [JRate.of(*s) for s in specs], keep_bitstream=keep)
     got = tj2k.J2KCodec(entropy="device", **opts).sweep_rates(
-        cube, "uint16", [TRate.of(*s) for s in specs], keep_bitstream=keep)
+        cube, "uint16", [TRate.of(*s) for s in specs], keep_bitstream=keep,
+        device="cpu")
     return specs, want, got
 
 
@@ -127,12 +128,14 @@ def test_kept_streams_with_the_ports_own_transform(cube, case):
 def test_stream_length_is_wenc_size_bytes_and_decodes_to_the_recon(cube,
                                                                    quality):
     codec = tj2k.J2KCodec(entropy="device")
-    (res,) = codec.sweep_qualities(cube, "uint16", [quality], True)
+    (res,) = codec.sweep_qualities(cube, "uint16", [quality], True,
+                                   device="cpu")
     B, H, W = cube.shape
     c = codec._shape_consts(96, 128, torch.device("cpu"))
     peak = float(cube.max())
     base = np.float32(tj2k.base_step_for_quality(quality, peak))
-    coefs = tj2k.dwt97(tj2k.device_work(cube, {}, 32, torch.float32), 5)
+    coefs = tj2k.dwt97(tj2k.device_work(cube, {"device": "cpu"}, 32,
+                                         torch.float32), 5)
     qc = tj2k.quantize(tj2k._perm(coefs, c.order),
                        c.inv_scale_perm * float(np.float32(1.0) / base))
     sizes = tj2k.wenc_size_bytes(qc, c.segbounds, c.rle)
@@ -159,20 +162,22 @@ def test_a_stream_that_disagrees_with_the_model_raises(cube, monkeypatch):
     monkeypatch.setattr(twc, "wenc_quant_encode_ck", longer)
     codec = tj2k.J2KCodec(entropy="device")
     with pytest.raises(RuntimeError, match="differ from the device size"):
-        codec.sweep_qualities(cube, "uint16", [40], keep_bitstream=True)
+        codec.sweep_qualities(cube, "uint16", [40], keep_bitstream=True,
+                              device="cpu")
     wenc = twc.wenc_encode
     monkeypatch.setattr(twc, "wenc_encode",
                         lambda *a, **kw: wenc(*a, **kw) + b"\0")
     for spec in (TRate.of("quality", 40), TRate.none()):
         with pytest.raises(RuntimeError, match="differ from the device size"):
             tj2k.J2KCodec(entropy="device").run(cube, "uint16", spec,
-                                                keep_bitstream=True)
+                                                keep_bitstream=True,
+                                                device="cpu")
 
 
 def test_checksum_mismatch_rebuilds_the_recon_from_host_coefficients(
         cube, monkeypatch):
     codec = tj2k.J2KCodec(entropy="device")
-    (want,) = codec.sweep_qualities(cube, "uint16", [40], True)
+    (want,) = codec.sweep_qualities(cube, "uint16", [40], True, device="cpu")
     ladder = tj2k.requant_recon_ladder
 
     def wrong_sums(*a, **kw):
@@ -180,7 +185,8 @@ def test_checksum_mismatch_rebuilds_the_recon_from_host_coefficients(
         return torch.zeros_like(recons), s1 + 1, s2
     monkeypatch.setattr(tj2k, "requant_recon_ladder", wrong_sums)
     with pytest.warns(UserWarning, match="uploading host coefficients"):
-        (got,) = codec.sweep_qualities(cube, "uint16", [40], True)
+        (got,) = codec.sweep_qualities(cube, "uint16", [40], True,
+                                       device="cpu")
     assert got.bitstreams == want.bitstreams
     assert torch.equal(got.recon, want.recon)
 
@@ -195,9 +201,12 @@ def test_reps_reuse_the_cached_transform_and_fetch(cube, monkeypatch):
     monkeypatch.setattr(tj2k, "dwt97", counting)
     codec = tj2k.J2KCodec(entropy="device")
     cache = {}
-    first = codec.sweep_qualities(cube, "uint16", [10, 40], False, cache)
-    kept = codec.sweep_qualities(cube, "uint16", [10, 40], True, cache)
-    again = codec.sweep_qualities(cube, "uint16", [10, 40], True, cache)
+    first = codec.sweep_qualities(cube, "uint16", [10, 40], False, cache,
+                                  device="cpu")
+    kept = codec.sweep_qualities(cube, "uint16", [10, 40], True, cache,
+                                 device="cpu")
+    again = codec.sweep_qualities(cube, "uint16", [10, 40], True, cache,
+                                  device="cpu")
     assert calls["n"] == 1
     (entry,) = [v for k, v in cache.items() if k[0] == "j2k_dwt"]
     assert isinstance(entry[1], np.ndarray)         # the fetched scan order
@@ -218,17 +227,18 @@ def test_signatures_and_positional_calls_equal_tpukit(cube):
     assert list(inspect.signature(tj2k.J2KCodec.sweep_qualities)
                 .parameters) == ["self", "cube", "dtype_name", "qualities",
                                  "keep_bitstream", "cache", "device_cube",
-                                 "mesh"]
+                                 "mesh", "device"]
     args = (cube, "uint16", [40], False, None, None, None)
     (w,) = jj2k.J2KCodec(entropy="device").sweep_qualities(*args)
-    (g,) = tj2k.J2KCodec(entropy="device").sweep_qualities(*args)
+    (g,) = tj2k.J2KCodec(entropy="device").sweep_qualities(*args, device="cpu")
     assert abs(g.bitstream_bytes - w.bitstream_bytes) \
         <= BYTES_REL * w.bitstream_bytes
     specs_j, specs_t = [JRate.of("quality", 40)], [TRate.of("quality", 40)]
     (w,) = [r for r in jj2k.J2KCodec(64, 32, entropy="device")
             ._sweep_tiled_device(cube, "uint16", specs_j, [0], 64, 32)]
     (g,) = [r for r in tj2k.J2KCodec(64, 32, entropy="device")
-            ._sweep_tiled_device(cube, "uint16", specs_t, [0], 64, 32)]
+            ._sweep_tiled_device(cube, "uint16", specs_t, [0], 64, 32,
+                                 device="cpu")]
     assert abs(g.bitstream_bytes - w.bitstream_bytes) \
         <= BYTES_REL * w.bitstream_bytes
     assert g.extras == w.extras

@@ -98,7 +98,8 @@ def _close(cube, got, want):
 def test_lossless_run_equals_tpukit(cubes, dtype):
     cube = cubes["untiled" if dtype == "uint16" else "int16"]
     want = jj2k.J2KCodec(entropy="device").run(cube, dtype, RateSpec.none())
-    got = tj2k.J2KCodec(entropy="device").run(cube, dtype, TRateSpec.none())
+    got = tj2k.J2KCodec(entropy="device").run(cube, dtype, TRateSpec.none(),
+                                              device="cpu")
     assert got.bitstream_bytes == want.bitstream_bytes
     assert got.extras == want.extras
     assert got.extras["lsb_shift"] == (4 if dtype == "uint16" else 2)
@@ -117,7 +118,7 @@ def test_lossy_run_equals_tpukit(cubes, key, value, rate_fit):
     want = jj2k.J2KCodec(entropy="device", rate_fit=rate_fit).run(
         cube, "uint16", rate)
     got = tj2k.J2KCodec(entropy="device", rate_fit=rate_fit).run(
-        cube, "uint16", TRateSpec.of(key, value))
+        cube, "uint16", TRateSpec.of(key, value), device="cpu")
     _close(cube, got, want)
     if rate_fit:
         assert got.extras["target_bytes"] == want.extras["target_bytes"]
@@ -135,13 +136,13 @@ def test_sweep_qualities_equals_tpukit(cubes):
     cache = {}
     port = tj2k.J2KCodec(entropy="device")
     got = port.sweep_rates(cube, "uint16", _port(specs),
-                           device_plan_cache=cache)
+                           device_plan_cache=cache, device="cpu")
     for g, w in zip(got[:-1], want[:-1]):
         _close(cube, g, w)
     assert got[-1].bitstream_bytes == want[-1].bitstream_bytes
     # a second rep reuses the cached DWT and gives the same points
     again = port.sweep_rates(cube, "uint16", _port(specs),
-                             device_plan_cache=cache)
+                             device_plan_cache=cache, device="cpu")
     assert [r.bitstream_bytes for r in again] == \
         [r.bitstream_bytes for r in got]
     assert all(torch.equal(a.recon, g.recon) for a, g in zip(again, got))
@@ -156,7 +157,8 @@ def tiled_runs(cubes):
              RateSpec.none()]
     codec = jj2k.J2KCodec(tilex=TILE, tiley=TILE, entropy="device")
     want = codec.sweep_rates(cube, "uint16", specs)
-    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", _port(specs))
+    got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", _port(specs),
+                                               device="cpu")
     return cube, _port(specs), want, got
 
 
@@ -177,9 +179,9 @@ def test_batched_tiled_sweep_equals_tile_by_tile(tiled_runs, monkeypatch,
     cube, specs, _, got = tiled_runs
     monkeypatch.setattr(tj2k, "_TILE_BATCH", batch)
     codec = tj2k.J2KCodec(tilex=TILE, tiley=TILE, entropy="device")
-    batched = codec.sweep_rates(cube, "uint16", specs[:2])
+    batched = codec.sweep_rates(cube, "uint16", specs[:2], device="cpu")
     for b, g, spec in zip(batched, got, specs):
-        seq = codec.run(cube, "uint16", spec)
+        seq = codec.run(cube, "uint16", spec, device="cpu")
         for r in (b, g):
             assert r.bitstream_bytes == seq.bitstream_bytes
             assert torch.equal(r.recon, seq.recon)
@@ -193,7 +195,8 @@ def test_ebcot_tiles_at_bpp_equal_tpukit(cubes):
     codec = jj2k.J2KCodec(tilex=TILE, tiley=TILE)
     want = codec.sweep_rates(cube, "uint16", specs, keep_bitstream=True)
     got = from_tpukit_codec(codec).sweep_rates(cube, "uint16", _port(specs),
-                                               keep_bitstream=True)
+                                               keep_bitstream=True,
+                                               device="cpu")
     for g, w in zip(got, want):
         assert g.bitstreams == w.bitstreams and len(g.bitstreams) == 6 * 4
         assert g.bitstream_bytes == w.bitstream_bytes

@@ -182,8 +182,8 @@ def test_what_is_not_ported_raises(rng, opts, spec):
     rate = RateSpec.of("quality", 40)
     call = codec.run if spec == "run" else codec.sweep_rates
     arg = rate if spec == "run" else [rate]
-    kept = call(cube, "uint16", arg, keep_bitstream=True)
-    model = call(cube, "uint16", arg)
+    kept = call(cube, "uint16", arg, keep_bitstream=True, device="cpu")
+    model = call(cube, "uint16", arg, device="cpu")
     if spec != "run":
         (kept,), (model,) = kept, model
     n_tiles = -(-160 // opts.get("tilex", 160)) * -(-96 // opts.get("tiley", 96))
@@ -193,7 +193,8 @@ def test_what_is_not_ported_raises(rng, opts, spec):
     assert model.bitstreams is None
     assert torch.equal(kept.recon, model.recon)
     with pytest.raises(NotImplementedError, match="item 21"):
-        J2KCodec(**opts).sweep_rates(cube, "uint16", [rate], mesh=object())
+        J2KCodec(**opts).sweep_rates(cube, "uint16", [rate], mesh=object(),
+                                     device="cpu")
     with pytest.raises(NotImplementedError, match="item 21"):
         codec.sweep_qualities(cube, "uint16", [40], False, None, None,
-                              object())
+                              object(), device="cpu")

@@ -113,7 +113,9 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
                 (tmp_path / "jax" / rel).read_bytes(), rel
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2"], ["--stream-rows", "64"],
+@pytest.mark.parametrize("extra", [["--mesh", "2"],
+                                   ["--stream-rows", "32", "--codec",
+                                    "ccsds121", "--tile", "32"],
                                    ["--profile", "prof"],
                                    ["--compressor-cmd", "aec"],
                                    ["--compressor-cmd", "aec", "--", "-n",
@@ -124,9 +126,9 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path, caseb_tiles, extra):
     """Options the port does not have yet raise, naming their ROADMAP
     item, before any input is read; arguments after ``--`` reach that
-    refusal and not argparse's exit. What has been ported since (the
-    device mode's kept streams, CCSDS-122) runs the sweep and returns 0,
-    as tpukit's ``run_codec_main`` does."""
+    refusal and not argparse's exit. What has been ported since (scene
+    streaming in row strips, the device mode's kept streams, CCSDS-122)
+    runs the sweep and returns 0, as tpukit's ``run_codec_main`` does."""
     from tpukit.cli.main import run_codec_main as jax_run_codec
     from tpukit_torch.cli.main import main, run_codec_main
 

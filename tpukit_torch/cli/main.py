@@ -1,14 +1,23 @@
 # -*- coding: utf-8 -*-
 """tpukit_torch command-line interface.
 
-``python -m tpukit_torch run-codec ...`` is tpukit's sweep runner CLI
-(tpukit/cli/main.py:26-189, reference tools/run_codec.py:374-399) on a
-torch device, plus ``--device`` (default ``cuda``; an absent card is an
-error, not a fall back to the CPU). Codecs: tpukit's six, ccsds121,
-ccsds122 (``--entropy bpe|embedded``), ccsds123 (both predictors), jpegls,
-png and j2k (``--entropy ebcot|device``), each with and without
-``--keep-bitstream``. Flags the port cannot honour yet
-(``--compressor-cmd``, ``--profile``, ``--mesh``, ``--stream-rows``) raise
+``python -m tpukit_torch <command> ...``, on a torch device named by
+``--device`` (default ``cuda``; an absent card is an error, not a fall back
+to the CPU):
+
+  run-codec        tpukit's sweep runner CLI (tpukit/cli/main.py:26-189,
+                   reference tools/run_codec.py:374-399)
+  make-baseline-a  Case A preparation (tpukit/cli/main.py:192-215,
+                   reference tools/make_baseline_A.py)
+  make-baseline-b  Case B preparation (tpukit/cli/main.py:218-251,
+                   reference tools/make_baseline_B.py)
+
+``run-codec`` codecs: tpukit's six, ccsds121, ccsds122 (``--entropy
+bpe|embedded``), ccsds123 (both predictors), jpegls, png and j2k
+(``--entropy ebcot|device``), each with and without ``--keep-bitstream``;
+``--stream-rows`` streams items in row strips (items over 1 GiB stream by
+themselves with a strip-exact codec). Flags the port cannot honour yet
+(``--compressor-cmd``, ``--profile``, ``--mesh``) raise
 ``NotImplementedError`` naming their ROADMAP item. Arguments the parser
 does not know (those after ``--``, for ``--compressor-cmd``) are left
 alone, as tpukit's ``parse_known_args`` leaves them.
@@ -21,6 +30,7 @@ result dict.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
 
@@ -97,8 +107,7 @@ def run_codec_config(argv=None):
             ("--compressor-cmd", args.compressor_cmd,
              "item 20 (the external-wrapper codec)"),
             ("--profile", args.profile, "item 20 (torch.profiler)"),
-            ("--mesh", args.mesh, "item 21 (multi-GPU)"),
-            ("--stream-rows", args.stream_rows, "item 18 (scene streaming)")):
+            ("--mesh", args.mesh, "item 21 (multi-GPU)")):
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to tpukit_torch yet "
@@ -140,7 +149,7 @@ def run_codec_config(argv=None):
         ql_err_zoom=args.ql_err_zoom, case=args.case, asset=args.asset,
         link_mbps=link_mbps, link_eff=link_eff, csv_decimal=args.csv_decimal,
         single_csv=(Path(args.single_csv) if args.single_csv else None),
-        dedupe_reps=args.dedupe_reps)
+        stream_rows=args.stream_rows, dedupe_reps=args.dedupe_reps)
 
 
 def run_codec_main(argv=None):
@@ -152,7 +161,77 @@ def run_codec_main(argv=None):
     return 0
 
 
-COMMANDS = {"run-codec": run_codec_main}
+def make_baseline_a_main(argv=None):
+    ap = argparse.ArgumentParser(description="Case A baseline preparation")
+    ap.add_argument("--bands", nargs=4, required=True,
+                    metavar=("B02", "B03", "B04", "B08"))
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--scene", default="2000x10000")
+    ap.add_argument("--tile", default="1024x1024")
+    ap.add_argument("--hc", default="300,688")
+    ap.add_argument("--lc", default="488,7012")
+    ap.add_argument("--no-quicklooks", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the 12-in-16 conversion: cuda "
+                         "(default), cuda:N or cpu")
+    args = ap.parse_args(argv)
+    from tpukit_torch.pipelines.baseline_a import CaseAConfig, run
+    sw, sh = (int(v) for v in args.scene.split("x"))
+    tw, th = (int(v) for v in args.tile.split("x"))
+    cfg = CaseAConfig(
+        band_paths=[Path(p) for p in args.bands], outdir=Path(args.outdir),
+        scene_w=sw, scene_h=sh, tile_w=tw, tile_h=th,
+        hc_off=tuple(int(v) for v in args.hc.split(",")),
+        lc_off=tuple(int(v) for v in args.lc.split(",")),
+        quicklooks=not args.no_quicklooks, device=args.device)
+    out = run(cfg)
+    print(json.dumps({k: str(v) for k, v in out.items() if k != "items"}))
+    return 0
+
+
+def make_baseline_b_main(argv=None):
+    ap = argparse.ArgumentParser(description="Case B baseline preparation")
+    ap.add_argument("--input-raw", required=True)
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--dt", required=True)
+    ap.add_argument("--target-bands", type=int, default=180)
+    ap.add_argument("--tile-size", type=int, default=512)
+    ap.add_argument("--lc", default="580,5620")
+    ap.add_argument("--hc", default="2000,1536")
+    ap.add_argument("--stretch", default="1,99")
+    ap.add_argument("--gamma", type=float, default=0.9)
+    ap.add_argument("--wb", default="whitepatch", choices=["none", "whitepatch", "gray"])
+    ap.add_argument("--rgb-nm", default="665.0,560.0,490.0")
+    ap.add_argument("--false-nm", default="842.0,665.0,560.0")
+    ap.add_argument("--k", type=int, default=2)
+    ap.add_argument("--err-mode", default="mean",
+                    choices=["max", "mean", "rms", "p95", "count3"])
+    ap.add_argument("--err-scale", default="fixed", choices=["fixed", "auto"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the truncation and the error "
+                         "maps: cuda (default), cuda:N or cpu")
+    args = ap.parse_args(argv)
+    from tpukit_torch.pipelines.baseline_b import CaseBConfig, run
+    cfg = CaseBConfig(
+        input_raw=Path(args.input_raw), output=Path(args.output), dt=args.dt,
+        target_bands=args.target_bands, tile_size=args.tile_size,
+        lc=tuple(int(v) for v in args.lc.split(",")),
+        hc=tuple(int(v) for v in args.hc.split(",")),
+        stretch=tuple(float(v) for v in args.stretch.split(",")),
+        gamma=args.gamma, wb=args.wb,
+        rgb_nm=tuple(float(v) for v in args.rgb_nm.split(",")),
+        false_nm=tuple(float(v) for v in args.false_nm.split(",")),
+        k=args.k, err_mode=args.err_mode, err_scale=args.err_scale,
+        device=args.device)
+    out = run(cfg)
+    print(json.dumps({k: str(v) for k, v in out.items()
+                      if k not in ("items", "used_bits")}))
+    return 0
+
+
+COMMANDS = {"run-codec": run_codec_main,
+            "make-baseline-a": make_baseline_a_main,
+            "make-baseline-b": make_baseline_b_main}
 
 
 def main(argv=None):

@@ -8,8 +8,10 @@ tpukit/codecs/base.py it uses.
 ported to torch: the sweep runner uploads each tile once
 (``opts["device_cube"]``); a codec takes its device work from that upload
 when the shape fits, converting on the device, and otherwise converts on
-the host and uploads once, to the same device. Without an upload the work
-stays on the CPU: the device is always the caller's, never a default.
+the host and uploads once. The codec's device (:func:`work_device`) is
+``opts["device"]`` when the caller names one, else the upload's, else
+CUDA, as tpukit's codecs run on the default accelerator; an absent card
+is an error, never a quiet fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from tpukit_torch.codecs.wavelet_common import pad_to_multiple
+from tpukit_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -113,9 +116,13 @@ _NUMPY = {torch.int32: np.int32, torch.float32: np.float32}
 
 
 def work_device(opts: dict) -> torch.device:
-    """The device of the runner's upload, the CPU without one."""
+    """The codec's device: ``opts["device"]`` when given, else the device of
+    the runner's upload (``opts["device_cube"]``), else CUDA, which raises
+    where there is no card. Host-only codecs take the option and ignore it."""
+    if opts.get("device") is not None:
+        return resolve_device(opts["device"])
     dev = opts.get("device_cube")
-    return dev.device if dev is not None else torch.device("cpu")
+    return dev.device if dev is not None else resolve_device("cuda")
 
 
 def edge_pad(x: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
@@ -162,7 +169,7 @@ def device_work(cube: np.ndarray, opts: dict, multiple: int = 1,
     dev = opts.get("device_cube")
     if (dev is not None and tuple(dev.shape) == (B, H, W)
             and not (ring and dev.dtype.is_floating_point)):
-        work = dev.to(target)
+        work = dev.to(work_device(opts)).to(target)
         if ring:
             work = work & 0xFFFF
         return edge_pad(work, Hp, Wp)

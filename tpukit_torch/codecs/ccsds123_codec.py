@@ -288,9 +288,10 @@ class CCSDS123Codec(Codec):
         # device-resident ring source (rides the runner's upload when
         # present); tiles slice from it on the device. The standard path
         # is host-only (serial per-sample recurrence): no upload.
-        devw = (device_work(cube, opts, 1, "uint16")
-                if self.predictor == "ls" else None)
-        device = work_device(opts)
+        devw = device = None
+        if self.predictor == "ls":
+            devw = device_work(cube, opts, 1, "uint16")
+            device = work_device(opts)
         streams: Dict[str, bytes] = {}
         sum_bytes = 0
         t_comp = t_dec = 0.0

@@ -81,7 +81,7 @@ _TILE_BATCH = 8
 _NOT_PORTED_MESH = "ROADMAP.md 'Modules to port', item 21 (multi-GPU)"
 
 # the harness context a tile-by-tile run hands on to each tile
-_TILE_OPTS = ("device_plan_cache", "dedupe_reps", "device_cube")
+_TILE_OPTS = ("device_plan_cache", "dedupe_reps", "device_cube", "device")
 
 
 def quality_from_cr(cr: float) -> int:
@@ -606,7 +606,8 @@ class J2KCodec(Codec):
             if self.entropy == "device" and q_ix and not keep_bitstream:
                 out = self._sweep_tiled_device(cube, dtype_name, specs, q_ix,
                                                *tiles,
-                                               opts.get("device_cube"))
+                                               opts.get("device_cube"),
+                                               opts.get("device"))
             return [r if r is not None else
                     self.run(cube, dtype_name, s,
                              keep_bitstream=keep_bitstream, **pp)
@@ -624,7 +625,8 @@ class J2KCodec(Codec):
                                        keep_bitstream=keep_bitstream,
                                        cache=opts.get("device_plan_cache"),
                                        device_cube=opts.get("device_cube"),
-                                       mesh=opts.get("mesh"))
+                                       mesh=opts.get("mesh"),
+                                       device=opts.get("device"))
             for i, r in zip(lossy_ix, res):
                 out[i] = r
         return [r if r is not None else
@@ -637,7 +639,7 @@ class J2KCodec(Codec):
                         keep_bitstream: bool = False,
                         cache: dict | None = None,
                         device_cube: torch.Tensor | None = None,
-                        mesh=None) -> list:
+                        mesh=None, device=None) -> list:
         """Quality ladder of the device backend (port of tpukit
         j2k_codec.py:627-846): one 9/7 DWT (kernel K2 on CUDA) of the
         padded cube, kept in the harness ``cache`` across reps, whose wall
@@ -662,15 +664,17 @@ class J2KCodec(Codec):
         the point's coding wall, ``t_dec_s`` = its decode wall + an equal
         share of the residual wait for the device.
 
-        ``CodecResult.recon`` is a tensor on the device of ``device_cube``.
-        ``mesh`` is tpukit's device mesh, which the port does not have."""
+        ``CodecResult.recon`` is a tensor on the codec's device
+        (``base.work_device``: ``device``, else ``device_cube``'s, else
+        CUDA). ``mesh`` is tpukit's device mesh, which the port does not
+        have."""
         self._refuse({"mesh": mesh})
         B, H, W = cube.shape
         m = 1 << LEVELS
         Hp, Wp = H + (-H) % m, W + (-W) % m
         peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
         info = np.iinfo(cube.dtype)
-        opts = {"device_cube": device_cube}
+        opts = {"device_cube": device_cube, "device": device}
         dev = work_device(opts)
         c = self._shape_consts(Hp, Wp, dev)
         qualities = [int(q) for q in qualities]
@@ -960,19 +964,21 @@ class J2KCodec(Codec):
 
     def _sweep_tiled_device(self, cube: np.ndarray, dtype_name: str, specs,
                             q_ix, tx: int, ty: int,
-                            device_cube: torch.Tensor | None = None) -> list:
+                            device_cube: torch.Tensor | None = None,
+                            device=None) -> list:
         """Batched tiled device sweep of the QUALITY specs ``q_ix`` (port of
         tpukit j2k_codec.py:1381-1475): tiles grouped by shape, at most
         ``_TILE_BATCH`` to a batch, each batch stacked along the band axis
         as one (n_tiles·B, th, tw) cube with one DWT (K2), one size ladder
         (tile by tile) and one recon ladder. Quantizer steps are
         image-global, as in :meth:`_run_tiled`, so the result equals the
-        sequential tiled run. The tiles are cut from ``device_cube`` on its
-        device (from the host cube on the CPU without one), and the recons
-        are assembled there. ``t_comp_s`` is the wall up to the last
-        batch's sizes, ``t_dec_s`` that of reading the sizes and
-        assembling the recons, each shared equally by the points. Returns
-        a list aligned with ``specs``; other entries are None."""
+        sequential tiled run. The tiles are cut from ``device_cube`` (from
+        the host cube without one) on the codec's device
+        (``base.work_device``), and the recons are assembled there.
+        ``t_comp_s`` is the wall up to the last batch's sizes, ``t_dec_s``
+        that of reading the sizes and assembling the recons, each shared
+        equally by the points. Returns a list aligned with ``specs``; other
+        entries are None."""
         B, H, W = cube.shape
         info = np.iinfo(cube.dtype)
         m = 1 << LEVELS
@@ -982,9 +988,9 @@ class J2KCodec(Codec):
                           for q in qualities], np.float32)
         inv_bases = np.float32(1.0) / bases
         Q = len(q_ix)
+        dev = work_device({"device": device, "device_cube": device_cube})
         src = (device_cube if device_cube is not None
-               else torch.from_numpy(np.ascontiguousarray(cube)))
-        dev = src.device
+               else torch.from_numpy(np.ascontiguousarray(cube))).to(dev)
 
         groups: Dict[tuple, list] = {}
         for y0 in range(0, H, ty):
@@ -1235,8 +1241,11 @@ class J2KCodec(Codec):
             elif qual_ix:
                 qual_specs = {i: specs[i] for i in qual_ix}
                 # enqueued before the host analysis below, read after it
+                dc = opts.get("device_cube")
+                if dc is None:
+                    dc = torch.from_numpy(np.ascontiguousarray(cube))
                 pending = self._price_targets(cube, qual_specs,
-                                              opts.get("device_cube"))
+                                              dc.to(work_device(opts)))
                 base = min(1.0, float(self._quality_bases(
                     cube, qual_specs.values()).min()))
             for i in ladder:

@@ -3,8 +3,11 @@
 
 Port of tpukit/metrics/spectral.py:27-99 (``sobel_mag``, ``_sam_sid_sums``,
 ``spectral_stats``, ``spectral_stats_ladder``; the vmap is written out as a
-loop over lanes). The host assembly ``assemble_spectral_many`` (:102-118)
-is re-homed verbatim. Definitions follow reference tools/run_codec.py:308-347:
+loop over lanes), :128-156 (``spectral_stats_strip``, the per-strip sums
+of scene streaming) and :179-195 (``compute_sam_sid_lmse``, with an
+explicit ``device``). The host assembly ``assemble_spectral_many``
+(:102-118) and the strip merge ``merge_spectral_stats`` (:159-176) are
+re-homed verbatim. Definitions follow reference tools/run_codec.py:308-347:
 
   * SAM — mean spectral angle (degrees) over valid pixels, taken in the
     stable form 2·atan2(‖û−v̂‖, ‖û+v̂‖) on unit spectra;
@@ -15,11 +18,13 @@ is re-homed verbatim. Definitions follow reference tools/run_codec.py:308-347:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpukit_torch.device import resolve_device
 
 
 def sobel_mag(img: torch.Tensor) -> torch.Tensor:
@@ -100,3 +105,81 @@ def assemble_spectral_many(stacked) -> list:
                 "lmse": float(np.asarray(stacked["lmse"])[i]),
             })
     return out
+
+
+# ---------------------------------------------------------------------------
+# Strip streaming: per-strip sums + merge (scene-scale sweeps)
+# ---------------------------------------------------------------------------
+
+def spectral_stats_strip(ref: torch.Tensor, tst: torch.Tensor,
+                         valid: torch.Tensor, top: int, bot: int,
+                         left: int = 0, right: int = 0
+                         ) -> Dict[str, torch.Tensor]:
+    """Per-strip(-chunk) SAM/SID/LMSE sums for streamed merging.
+
+    ref/tst are (B, rows+top+bot, cols+left+right) — the chunk plus halo
+    rows/columns from the neighbouring chunks so the Sobel stencil sees the
+    same neighbourhood it would in a whole-image pass (at true image edges
+    the halo is 0 and edge padding applies, as in sobel_mag). ``valid``
+    covers the interior only. SAM/SID are per-pixel spectral reductions,
+    computed on the interior slice directly; LMSE returns a SUM plus count
+    (the reference's mean over all pixels, run_codec.py:341-346, is
+    reassembled by merge_spectral_stats)."""
+    rows = ref.shape[1] - top - bot
+    cols = ref.shape[2] - left - right
+
+    def interior(x):
+        return x[:, top:top + rows, left:left + cols]
+
+    A = ref.to(torch.float32)
+    R = tst.to(torch.float32)
+    n, sam_sum, sid_sum = _sam_sid_sums(interior(A), interior(R),
+                                        valid.to(torch.float32))
+    d = interior(sobel_mag(A) - sobel_mag(R))
+    return {"n": n, "sam_sum": sam_sum, "sid_sum": sid_sum,
+            "lmse_sum": (d * d).sum(),
+            "lmse_n": torch.tensor(float(d.numel()), dtype=torch.float32,
+                                   device=d.device)}
+
+
+def merge_spectral_stats(parts: list) -> Dict[str, float]:
+    """Combine per-strip spectral sums into the reference metric dict."""
+    n = sam = sid = lsum = ln = 0.0
+    for p in parts:
+        if p is None:
+            continue
+        n += float(np.asarray(p["n"], np.float64))
+        sam += float(np.asarray(p["sam_sum"], np.float64))
+        sid += float(np.asarray(p["sid_sum"], np.float64))
+        lsum += float(np.asarray(p["lmse_sum"], np.float64))
+        ln += float(np.asarray(p["lmse_n"], np.float64))
+    if n == 0:
+        # no valid pixels: all-NaN, matching compute_sam_sid_lmse and
+        # assemble_spectral_many (the tile path's reference fallback)
+        return {"sam_deg": float("nan"), "sid": float("nan"),
+                "lmse": float("nan")}
+    return {"sam_deg": float(np.degrees(sam / n)), "sid": sid / n,
+            "lmse": (lsum / ln) if ln else float("nan")}
+
+
+def compute_sam_sid_lmse(ref_cube: np.ndarray, tst_cube: np.ndarray,
+                         valid: Optional[np.ndarray] = None,
+                         device="cuda") -> Dict[str, float]:
+    """Host wrapper matching reference compute_sam_sid_lmse_caseB
+    (run_codec.py:308-347): returns NaNs when no valid pixels. The sums are
+    taken on ``device`` (CUDA unless the caller names the CPU)."""
+    ref_cube = np.asarray(ref_cube)
+    tst_cube = np.asarray(tst_cube)
+    B, H, W = ref_cube.shape
+    vm = np.ones((H, W), dtype=bool) if valid is None else np.asarray(valid).astype(bool)
+    dev = resolve_device(device)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    s = spectral_stats(up(ref_cube), up(tst_cube), up(vm))
+    n = float(s["n"])
+    if n == 0:
+        return {"sam_deg": float("nan"), "sid": float("nan"), "lmse": float("nan")}
+    return {
+        "sam_deg": float(np.degrees(float(s["sam_sum"]) / n)),
+        "sid": float(s["sid_sum"]) / n,
+        "lmse": float(s["lmse"]),
+    }
