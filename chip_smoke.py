@@ -122,7 +122,27 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      ``make-baseline-b`` on two synthetic 224-band 1000² EnMAP products, on
      the card and with ``--device cpu``: every output file byte-equal; in
      each other ``--err-mode`` on the card, its error map equal to the
-     CPU's map of the same scenes.
+     CPU's map of the same scenes;
+ 10. the rest of the command line: (a) ``tile-complexity --device cuda``
+     on phase 5's two tiles and phase 3's tile, twice on the card (the same
+     bits) and with ``--device cpu`` (counts exact, grad_* within rel 1e-5,
+     the spectral metrics and delentropy within rel 1e-4), the ms per tile
+     on each; (b) ``codec-ccsds121`` with the anchor flags on the card: a
+     JSON last line, recon == the tile, the kept stream == phase 3's, K1 once
+     per plan chunk; (c) ``codec-j2k --quality 40 --entropy device
+     --keep-bitstream`` on the HC tile: K2 as ``plan`` schedules one 1024²
+     transform, the kept streams == phase 8c's q 40 streams; (d) ``run-codec
+     --compressor-cmd`` over ``codec-ccsds121 --device cuda`` in a child
+     process, the anchor flags after ``--``: lossless, the row == phase 3's
+     but the time and memory columns, the stream == phase 3's, and the
+     child's start-up cost step by step; (e) ``J2KCodec.sweep_rd`` on the HC
+     tile at the 14 qualities: bytes, max|Δ| and the lossless flag == phase
+     6b's rep 1 rows, PSNR/SSIM within rel 1e-5, K2 as for one transform;
+     (f) one anchor rep with and without ``--profile``: the Chrome trace
+     names K1's kernel, both walls; (g) ``doctor --smoke --device cuda``:
+     rc 0, every row ok; (h) ``rd-curve`` from phase 5's metrics_mean.csv
+     where pandas and matplotlib import, else the refusal naming the one
+     that is missing.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -130,7 +150,9 @@ last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX and
 nothing of tpukit: the input recipes are copies of bench.py's.
 """
 
+import contextlib
 import csv
+import io
 import json
 import math
 import shutil
@@ -499,7 +521,8 @@ def write_caseb_index(work: Path, cube: np.ndarray, name="caseB") -> Path:
 
 def run_slice(work: Path, cube: np.ndarray, card: str):
     """Phase 3: the Case B anchor sweep through the port's CLI on CUDA;
-    returns K1's launch count in the sweep and the stream's bytes."""
+    returns K1's launch count in the sweep, the stream's bytes, and the
+    stream and rep 1's CSV row (phase 10 holds the wrappers to them)."""
     idx = write_caseb_index(work, cube)
 
     plans = []
@@ -569,7 +592,7 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     log(f"[slice] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
         f"{launches} K1 launches, {len(serial)} B stream, hbm peak "
         f"{rows[0].get('hbm_peak_mb')} MiB on {card}")
-    return launches, len(serial)
+    return launches, len(serial), {"stream": serial, "row": rows[0]}
 
 
 def metric_pass(device, cube, lanes, valid):
@@ -618,7 +641,8 @@ def check_metrics(cube, dev, card):
 
 def run_casea(work: Path, tiles, card: str):
     """Phase 5: the Case A quality ladder through the port's CLI on CUDA;
-    returns K2's launch count in the sweep."""
+    returns K2's launch count in the sweep and the text of its
+    metrics_mean.csv (phase 10 draws it)."""
     items = []
     for tid, t in tiles.items():
         p = work / f"caseA_tile_{tid}_12in16.tif"
@@ -738,7 +762,7 @@ def run_casea(work: Path, tiles, card: str):
     log(f"[caseA] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
         f"{launches} K2 launches, hbm peak {rows[0].get('hbm_peak_mb')} MiB "
         f"on {card}")
-    return launches
+    return launches, (work / "runsA" / "metrics_mean.csv").read_text()
 
 
 def read_rows(path: Path):
@@ -924,7 +948,8 @@ def write_index(work: Path, tiles, name: str) -> Path:
 
 def run_device_ladder(work: Path, tiles, card):
     """Phase 6b: the untiled device-mode quality ladder through the port's
-    CLI on CUDA; returns (K1, K2) launch counts of the sweep."""
+    CLI on CUDA; returns (K1, K2) launch counts of the sweep and the HC
+    tile's rep 1 rows by quality (phase 10 holds ``sweep_rd`` to them)."""
     idx = write_index(work, tiles, "ladder")
     fs_table.launches = 0
     dwt97.launches = 0
@@ -979,7 +1004,11 @@ def run_device_ladder(work: Path, tiles, card):
     log(f"[ladder] sweep wall {wall:.2f} s, phases {res['phases']}, {k1} K1 "
         f"and {k2} K2 launches, hbm peak {rows[0].get('hbm_peak_mb')} MiB "
         f"on {card}")
-    return k1, k2
+    hc_rep1 = {}                     # rate outer, rep inner: rep 1 first
+    for r in rows:
+        if r["tile_id"] == "HC":
+            hc_rep1.setdefault(int(num(r["rate_value"])), r)
+    return k1, k2, hc_rep1
 
 
 def run_device_lossless(work: Path, tile: np.ndarray, card):
@@ -1572,9 +1601,11 @@ def ccsds122_stages(tile: np.ndarray, dev, card):
 def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
     """Phase 8c: the J2K device mode with kept streams through the port's
     CLI on CUDA, whole tile and tiled; returns the (K1, K2) launch counts
-    of the two sweeps."""
+    of the two sweeps and the whole tile's kept q 40 streams (phase 10
+    holds the ``codec-j2k`` wrapper to them)."""
     B, H, W = tile.shape
     counts = []
+    kept_q40 = None
     runs = [("HC", tile, [str(q) for q in QUALITIES_KEPT], []),
             ("crop", crop, ["40"], ["--tilex", str(SCENE_TILE), "--tiley",
                                     str(SCENE_TILE)])]
@@ -1626,6 +1657,8 @@ def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
                                      f"the card != the CPU run's")
             if int(row["bitstream_bytes"]) != sum(map(len, streams.values())):
                 raise AssertionError(f"[j2k kept] {tid} q={q}: CSV bytes")
+            if not extra and q == "40":
+                kept_q40 = streams
             with tiff.open(d / "recon.tif") as ds:
                 recon = ds.read()
             if not np.array_equal(recon, w.recon.numpy()):
@@ -1655,7 +1688,7 @@ def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
             f"wall {wall:.2f} s, phases {res['phases']}, {k1} K1 and {k2} "
             f"K2 launches on {card}")
         counts.append((k1, k2))
-    return counts
+    return counts, kept_q40
 
 
 def run_ccsds122_caseb(work: Path, cube: np.ndarray, card):
@@ -1703,11 +1736,12 @@ def run_phase8(tiles, cube, dev, card):
         emb_k1 = run_ccsds122(work, tiles, dev, card, "embedded")
         crop = np.ascontiguousarray(make_scene(
             np.random.default_rng(2026))[:, :, 8 * SCENE_TILE:])
-        (kept_k1, kept_k2), (tiled_k1, tiled_k2) = run_j2k_kept(
+        ((kept_k1, kept_k2), (tiled_k1, tiled_k2)), kept_q40 = run_j2k_kept(
             work, tiles["HC"], crop, dev, card)
         run_ccsds122_caseb(work, cube, card)
     log(f"[ccsds122] phase 8 in {time.perf_counter() - t8:.1f} s")
-    return {"k1": {"ccsds122_bpe": bpe_k1,
+    return {"kept_q40": kept_q40,
+            "k1": {"ccsds122_bpe": bpe_k1,
                    "ccsds122_embedded_lossless": emb_k1,
                    "j2k_device_kept": kept_k1,
                    "j2k_device_kept_tiled": tiled_k1},
@@ -2226,6 +2260,376 @@ def run_phase9(card):
     return {"scene_stream512": k1_512, **counts}
 
 
+# phase 10: the rest of tpukit's command line on the card
+ANCHOR_FLAGS = ["--tile", "512", "--preproc", "none", "--nbit", "16",
+                "--interleave", "bip"]
+COMPLEXITY_INTS = ("path", "bands", "width", "height")
+REPO = Path(__file__).resolve().parent
+
+
+def cli_lines(fn, argv):
+    """A command's entry point in this process: (its code, its stdout
+    lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def complexity_close(got: dict, want: dict, tag: str):
+    """tile-complexity's tolerances (tests/test_torch_complexity.py): the
+    integers exact; grad_* within rel 1e-5 (grad_std on grad_mean's scale),
+    the spectral metrics and delentropy_bits within rel 1e-4 (cuFFT against
+    pocketfft, float32 sums in another order)."""
+    if list(got) != list(want):
+        raise AssertionError(f"[10a] {tag}: keys {list(got)} != {list(want)}")
+    worst = {}
+    for k, w in want.items():
+        g = got[k]
+        if k in COMPLEXITY_INTS:
+            if g != w:
+                raise AssertionError(f"[10a] {tag} {k}: {g} != {w}")
+            continue
+        rel = 1e-5 if k.startswith("grad_") else 1e-4
+        scale = max(abs(w), abs(want["grad_mean"])) if k == "grad_std" \
+            else abs(w)
+        worst[k] = abs(g - w) / max(scale, 1e-30)
+        if worst[k] > rel:
+            raise AssertionError(f"[10a] {tag} {k}: CUDA {g} != CPU {w} "
+                                 f"(rel {worst[k]:.2e} > {rel})")
+    return worst
+
+
+def run_tile_complexity(work: Path, tiles, cube, card):
+    """10a: ``tile-complexity --device cuda`` on the two Case A tiles and
+    the Case B tile, twice on the card (the same bits) and once with
+    ``--device cpu`` (within the tolerances); the ms per tile of each."""
+    from tpukit_torch.cli.main import tile_complexity_main
+    paths = {}
+    for tid, t in {**tiles, "caseB": cube}.items():
+        paths[tid] = work / f"cx_{tid}.tif"
+        tiff.write_geotiff(paths[tid], t, blockxsize=512, blockysize=512)
+    for tid, p in paths.items():
+        got, ms = {}, {}
+        for run, device in (("cuda", "cuda"), ("cuda again", "cuda"),
+                            ("cpu", "cpu")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, lines = cli_lines(tile_complexity_main,
+                                  [str(p), "--json", "--device", device])
+            ms[run] = 1e3 * (time.perf_counter() - t0)
+            if rc != 0:
+                raise AssertionError(f"[10a] {tid} {device}: rc {rc}")
+            got[run] = json.loads(lines[-1])
+        if got["cuda"] != got["cuda again"]:
+            raise AssertionError(f"[10a] {tid}: two card runs differ: "
+                                 f"{got['cuda']} != {got['cuda again']}")
+        worst = complexity_close(got["cuda"], got["cpu"], tid)
+        shape = tuple((cube if tid == "caseB" else tiles[tid]).shape)
+        log(f"[10a] tile-complexity {tid} {shape}: CUDA {ms['cuda']:.1f} ms "
+            f"(first call), {ms['cuda again']:.1f} ms (second), CPU "
+            f"{ms['cpu']:.1f} ms, each with the TIFF read, "
+            f"on {card}; two card runs bit-equal; CUDA vs CPU worst rel "
+            + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+        log(f"[10a] {tid} on the card: {got['cuda']}")
+    return paths
+
+
+def run_wrapper_anchor(work: Path, src: Path, cube: np.ndarray, anchor,
+                       card) -> int:
+    """10b: ``codec-ccsds121`` with the anchor flags on the card, in this
+    process: a JSON last line, recon == the tile, the kept stream == phase
+    3's; returns K1's launches (one per plan chunk)."""
+    from tpukit_torch.cli import wrappers
+    out = work / "wrap121"
+    fs_table.launches = 0
+    t0 = time.perf_counter()
+    rc, lines = cli_lines(wrappers.ccsds121_main, [
+        "--in", str(src), "--out", str(out / "recon.tif"),
+        "--keep-bitstream", str(out / "bit"), *ANCHOR_FLAGS,
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fs_table.launches
+    meta = json.loads(lines[-1])
+    nchunks = -(-cube.size // PLAN_CHUNK)
+    if rc != 0 or k1 != nchunks:
+        raise AssertionError(f"[10b] rc {rc}, K1 {k1} (expected {nchunks})")
+    stream = (out / "bit" / "t_x00000_y00000.aec").read_bytes()
+    if stream != anchor["stream"]:
+        raise AssertionError("[10b] kept stream != phase 3's anchor stream")
+    if meta["codec"] != "ccsds121_ext" or \
+            meta["bitstream_bytes"] != len(stream):
+        raise AssertionError(f"[10b] JSON {meta}")
+    with tiff.open(out / "recon.tif") as ds:
+        if not np.array_equal(ds.read(), cube):
+            raise AssertionError("[10b] recon.tif != the tile")
+    log(f"[10b] codec-ccsds121 (anchor flags) wall {wall:.2f} s, "
+        f"t_comp_s {meta['t_comp_s']:.3f}, t_dec_s {meta['t_dec_s']:.3f}, "
+        f"{k1} K1 launches, stream == phase 3's ({len(stream)} B), recon == "
+        f"tile, on {card}")
+    return k1
+
+
+def run_wrapper_j2k(work: Path, src: Path, kept_q40, card):
+    """10c: ``codec-j2k --quality 40 --entropy device`` on the HC tile on
+    the card: K2 launched as ``plan`` schedules one 1024² transform, the
+    kept streams == phase 8c's q 40 streams. (The ``ebcot`` wrapper emits a
+    quality point whole, without pricing, in tpukit as in the port: no K2
+    there and no phase 5 stream to equal.) Returns (K1, K2) launches."""
+    from tpukit_torch.cli import wrappers
+    out = work / "wrapj2k"
+    fs_table.launches = 0
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    rc, lines = cli_lines(wrappers.j2k_main, [
+        "--in", str(src), "--out", str(out / "recon.tif"),
+        "--keep-bitstream", str(out / "bit"), "--quality", "40",
+        "--entropy", "device", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fs_table.launches, dwt97.launches
+    meta = json.loads(lines[-1])
+    if rc != 0 or k2 != len(plan(1024, 1024, 5)):
+        raise AssertionError(f"[10c] rc {rc}, K2 {k2}")
+    streams = kept_streams(out)
+    if streams != kept_q40:
+        raise AssertionError("[10c] kept streams != phase 8c's q 40 streams")
+    if meta["bitstream_bytes"] != sum(map(len, streams.values())):
+        raise AssertionError(f"[10c] JSON {meta}")
+    log(f"[10c] codec-j2k --quality 40 --entropy device wall {wall:.2f} s, "
+        f"{meta['bitstream_bytes']} B in {len(streams)} streams == phase 8c's, "
+        f"{k1} K1 and {k2} K2 launches, on {card}")
+    return k1, k2
+
+
+def child_startup(card):
+    """What a wrapper child pays before it codes, in one fresh process that
+    stamps each step on its own clock: torch's import, CUDA's
+    initialisation, the kernels' and the host library's load, the port's
+    CLI; the interpreter's start is the rest of the process's wall."""
+    code = (
+        "import json, time; t = [time.perf_counter()]\n"
+        "import torch; t.append(time.perf_counter())\n"
+        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+        "t.append(time.perf_counter())\n"
+        "from tpukit_torch.kernels import build; build.load()\n"
+        "from tpukit_torch import native; native.load()\n"
+        "t.append(time.perf_counter())\n"
+        "from tpukit_torch.cli import main, wrappers\n"
+        "t.append(time.perf_counter())\n"
+        "print(json.dumps([b - a for a, b in zip(t, t[1:])]))\n")
+    env = dict(__import__("os").environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         check=True, capture_output=True, text=True).stdout
+    wall = time.perf_counter() - t0
+    steps = json.loads(out.strip().splitlines()[-1])
+    names = ("import torch", "CUDA init", "kernel and host library load",
+             "the port's CLI import")
+    log(f"[10d] a child's start-up, {wall:.2f} s in all (host clock): "
+        + ", ".join(f"{n} {v:.2f} s" for n, v in zip(names, steps))
+        + f", the interpreter's start and exit {wall - sum(steps):.2f} s; "
+        f"on {card}")
+
+
+def run_compressor_cmd(work: Path, cube: np.ndarray, anchor, card):
+    """10d: ``run-codec --compressor-cmd`` over ``python3 -m tpukit_torch
+    codec-ccsds121 --device cuda`` (a two-line script: argparse's
+    ``nargs="+"`` stops at ``-m``), the anchor flags after ``--``, 1 rep:
+    lossless, phase 3's bytes and stream, its row but for the time and
+    memory columns. K1 runs in the child, where this process cannot count
+    it."""
+    script = work / "codec_ccsds121_cuda.py"
+    script.write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from tpukit_torch.cli.main import main\n"
+        "sys.exit(main(['codec-ccsds121', '--device', 'cuda', "
+        "*sys.argv[1:]]))\n")
+    idx = write_caseb_index(work, cube, "cmd")
+    out = work / "runsCmd"
+    t0 = time.perf_counter()
+    res = run_codec([
+        "--indices", str(idx), "--codec", "ccsds121", "--rate-key", "none",
+        "--reps", "1", "--keep-bitstream", "--outdir", str(out),
+        "--device", "cuda", "--compressor-cmd", sys.executable, str(script),
+        "--", *ANCHOR_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (row,) = read_rows(out / "metrics.csv")
+    stream = (out / "T01" / "norate" / "rep_01" / "bit"
+              / "t_x00000_y00000.aec").read_bytes()
+    if row["lossless"] != "1" or stream != anchor["stream"]:
+        raise AssertionError(f"[10d] lossless {row['lossless']}, stream == "
+                             f"phase 3's: {stream == anchor['stream']}")
+    same_rows([row], [anchor["row"]], "[10d] row vs phase 3's")
+    t_codec = num(row["t_comp_s"]) + num(row["t_dec_s"])
+    (phase,) = res["phases"]
+    log(f"[10d] --compressor-cmd sweep wall {wall:.2f} s, phases "
+        f"{res['phases']}; the child's t_comp_s {row['t_comp_s']}, t_dec_s "
+        f"{row['t_dec_s']}: its codec phase {phase['codec_s']:.2f} s is "
+        f"{phase['codec_s'] - t_codec:.2f} s beyond the codec's timed work "
+        f"(the child's start-up, the tile's TIFF write and the recon's "
+        f"read); row == phase 3's but time and memory; on {card}")
+    child_startup(card)
+
+
+def run_sweep_rd(tile: np.ndarray, ladder_hc, card) -> int:
+    """10e: ``J2KCodec.sweep_rd`` on the HC tile at bench.py's 14 qualities
+    on the card: the device mode's ladder with its metrics, held to phase
+    6b's rep 1 rows of the same tile (its CSV through the runner: bytes,
+    max|Δ| and the lossless flag exact, PSNR/SSIM within rel 1e-5). Returns
+    K2's launches."""
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    rows = J2KCodec(entropy="device").sweep_rd(tile, "uint16", RATES_A,
+                                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = dwt97.launches
+    if k2 != len(plan(1024, 1024, 5)):
+        raise AssertionError(f"[10e] K2 {k2}")
+    worst = 0.0
+    for q, (res, met) in zip(RATES_A, rows):
+        ref = ladder_hc[q]
+        if res.bitstream_bytes != int(ref["bitstream_bytes"]):
+            raise AssertionError(f"[10e] q={q}: {res.bitstream_bytes} B != "
+                                 f"phase 6b's {ref['bitstream_bytes']}")
+        if (met["max_abs_err"], met["lossless"]) != \
+                (int(num(ref["max_abs_err"])), int(ref["lossless"])):
+            raise AssertionError(f"[10e] q={q}: max|Δ| / lossless")
+        for k, v in met.items():
+            if k.startswith(("psnr", "ssim")) and ref.get(k):
+                rel = abs(v - num(ref[k])) / max(abs(num(ref[k])), 1e-30)
+                worst = max(worst, rel)
+                if rel > 1e-5:
+                    raise AssertionError(f"[10e] q={q} {k}: {v} != "
+                                         f"{ref[k]}")
+    log(f"[10e] sweep_rd HC at {len(RATES_A)} qualities: wall {wall:.2f} s, "
+        f"{k2} K2 launches, bytes == phase 6b's, PSNR/SSIM worst rel "
+        f"{worst:.1e} (the CSV's 6 decimals), on {card}")
+    return k2
+
+
+def run_profiled_anchor(work: Path, cube: np.ndarray, card) -> int:
+    """10f: one anchor rep with and without ``--profile``: a Chrome trace
+    naming K1's kernel; both walls. Returns K1's launches in the profiled
+    run."""
+    idx = write_caseb_index(work, cube, "prof")
+    argv = ["--indices", str(idx), "--codec", "ccsds121", "--rate-key",
+            "none", "--reps", "1", *ANCHOR_FLAGS, "--device", "cuda"]
+    walls = {}
+    for tag, extra in (("plain", []), ("profiled",
+                                       ["--profile", str(work / "prof")])):
+        fs_table.launches = 0
+        t0 = time.perf_counter()
+        if run_codec_main(argv + ["--outdir", str(work / f"runs_{tag}"),
+                                  *extra]) != 0:
+            raise AssertionError(f"[10f] {tag}: rc != 0")
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+    k1 = fs_table.launches
+    trace = work / "prof" / "trace.json"
+    text = trace.read_text()
+    if "fs_table_kernel" not in text:
+        raise AssertionError("[10f] the trace does not name K1's kernel")
+    log(f"[10f] anchor rep {walls['plain']:.2f} s, with --profile "
+        f"{walls['profiled']:.2f} s (trace {trace.stat().st_size / 1e6:.1f} "
+        f"MB, names fs_table_kernel, {text.count('fs_table_kernel')} "
+        f"mentions, {k1} K1 launches), on {card}")
+    return k1
+
+
+def run_doctor(card):
+    """10g: ``doctor --smoke --device cuda``: rc 0 and every row ok.
+    Returns its (K1, K2) launches."""
+    from tpukit_torch.cli.main import doctor_main
+    fs_table.launches = 0
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    rc, lines = cli_lines(doctor_main, ["--smoke", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    rows = [ln for ln in lines if ln.startswith("[")]
+    bad = [ln for ln in rows if not ln.startswith("[ok ]")]
+    if rc != 0 or bad or len(rows) != 10:
+        raise AssertionError(f"[10g] rc {rc}, rows {rows}")
+    log(f"[10g] doctor --smoke --device cuda in {wall:.1f} s, all "
+        f"{len(rows)} rows ok:\n" + "\n".join(rows))
+    return fs_table.launches, dwt97.launches
+
+
+def run_figures(work: Path, mean_csv: str, card):
+    """10h: ``rd-curve`` from phase 5's metrics_mean.csv where pandas and
+    matplotlib import; where they do not, the named refusal."""
+    from tpukit_torch.cli.main import rd_curve_main
+    src = work / "metrics_mean.csv"
+    src.write_text(mean_csv)
+    missing = []
+    for name in ("pandas", "matplotlib"):
+        try:
+            __import__(name)
+        except ImportError:
+            missing.append(name)
+    argv = ["--csv", str(src), "--out-prefix", str(work / "fig" / "rd")]
+    if not missing:
+        if rd_curve_main(argv) != 0:
+            raise AssertionError("[10h] rd-curve rc != 0")
+        figs = sorted(p.name for p in (work / "fig").glob("*.png"))
+        if not figs:
+            raise AssertionError("[10h] rd-curve drew nothing")
+        log(f"[10h] rd-curve drew {figs} from phase 5's CSV")
+        return
+    try:
+        rd_curve_main(argv)
+    except SystemExit as e:
+        if not (isinstance(e.code, str) and missing[0] in e.code):
+            raise AssertionError(f"[10h] refusal {e.code!r} does not name "
+                                 f"{missing[0]}")
+        log(f"[10h] {', '.join(missing)} not installed on this machine: "
+            f"rd-curve refused, naming it: {e.code}")
+        return
+    raise AssertionError(f"[10h] rd-curve ran without {missing}")
+
+
+def run_phase10(card, tiles, cube, refs):
+    """Phase 10; returns the launch counts by path. ``refs``: phase 3's
+    anchor stream and row, phase 5's metrics_mean.csv, phase 6b's HC rows
+    and phase 8c's kept HC q 40 streams."""
+    t10 = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        work = Path(tmp)
+        for tag, fn in (
+                ("10a", lambda: run_tile_complexity(work, tiles, cube, card)),
+                ("10b", lambda: run_wrapper_anchor(
+                    work, work / "cx_caseB.tif", cube, refs["anchor"], card)),
+                ("10c", lambda: run_wrapper_j2k(
+                    work, work / "cx_HC.tif", refs["kept_q40"], card)),
+                ("10d", lambda: run_compressor_cmd(work, cube, refs["anchor"],
+                                                   card)),
+                ("10e", lambda: run_sweep_rd(tiles["HC"], refs["ladder_hc"],
+                                             card)),
+                ("10f", lambda: run_profiled_anchor(work, cube, card)),
+                ("10g", lambda: run_doctor(card)),
+                ("10h", lambda: run_figures(work, refs["mean_csv"], card))):
+            t0 = time.perf_counter()
+            times[tag] = (fn(), time.perf_counter() - t0)
+    log(f"[cli] phase 10 in {time.perf_counter() - t10:.1f} s ("
+        + ", ".join(f"{k} {v[1]:.1f} s" for k, v in times.items()) + ")")
+    (wrap_k1, (j2k_k1, j2k_k2), rd_k2, prof_k1, (doc_k1, doc_k2)) = (
+        times["10b"][0], times["10c"][0], times["10e"][0], times["10f"][0],
+        times["10g"][0])
+    # the smoke's codecs run no 9/7 (J2K lossless is 5/3, CCSDS-122 the
+    # integer 9/7M): a path is listed under the kernels it launches
+    k1 = {"codec_ccsds121_wrapper": wrap_k1, "codec_j2k_wrapper_q40": j2k_k1,
+          "profiled_anchor_rep": prof_k1, "doctor_smoke": doc_k1}
+    k2 = {"codec_j2k_wrapper_q40": j2k_k2, "sweep_rd": rd_k2,
+          "doctor_smoke": doc_k2}
+    return {"k1": {k: v for k, v in k1.items() if v},
+            "k2": {k: v for k, v in k2.items() if v}}
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -2265,7 +2669,7 @@ def main():
     # phase 3: the slice
     cube = make_caseb_cube(np.random.default_rng(2026), BANDS, SIZE)
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
-        launches, anchor_bytes = run_slice(Path(tmp), cube, card)
+        launches, anchor_bytes, anchor = run_slice(Path(tmp), cube, card)
 
     # phase 4: lossy metric pass
     check_metrics(cube, dev, card)
@@ -2273,7 +2677,7 @@ def main():
     # phase 5: the Case A slice
     tiles = make_casea_tiles(np.random.default_rng(2026))
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
-        k2_launches = run_casea(Path(tmp), tiles, card)
+        k2_launches, casea_mean_csv = run_casea(Path(tmp), tiles, card)
 
     # phase 6: the J2K device fast mode
     t6 = time.perf_counter()
@@ -2281,7 +2685,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         scene_k1, scene_k2 = run_scene(Path(tmp), scene, dev, card)
         del scene
-        ladder_k1, ladder_k2 = run_device_ladder(Path(tmp), tiles, card)
+        ladder_k1, ladder_k2, ladder_hc = run_device_ladder(Path(tmp), tiles,
+                                                            card)
         lossless_k1 = run_device_lossless(Path(tmp), tiles["HC"], card)
         fit_k1 = run_device_rate_fit(Path(tmp), tiles["HC"], card)
     log(f"[fast mode] phase 6 in {time.perf_counter() - t6:.1f} s")
@@ -2303,6 +2708,11 @@ def main():
 
     # phase 9: scene streaming, the strip metrics and the baseline pipelines
     p9 = run_phase9(card)
+
+    # phase 10: the rest of the command line, held to phases 3, 5, 6b and 8c
+    p10 = run_phase10(card, tiles, cube, {
+        "anchor": anchor, "mean_csv": casea_mean_csv,
+        "ladder_hc": ladder_hc, "kept_q40": p8["kept_q40"]})
 
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
@@ -2338,12 +2748,13 @@ def main():
                "device_rate_fit": fit_k1,
                "packer_anchor_stream": pack_anchor_k1,
                "packer_mapped_residuals": pack_mapped_k1,
-               "ccsds123_sweep": c123_k1, **p8["k1"], **p9}),
+               "ccsds123_sweep": c123_k1, **p8["k1"], **p9,
+               **p10["k1"]}),
         entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
               "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
               (32, 1024, 1024),
               {"caseA_ebcot": k2_launches, "scene_row": scene_k2,
-               "device_ladder": ladder_k2, **p8["k2"]})]}
+               "device_ladder": ladder_k2, **p8["k2"], **p10["k2"]})]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

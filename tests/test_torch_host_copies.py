@@ -4,9 +4,11 @@
 tpukit_torch keeps copies of the host code it needs (``io``, ``sweep.csvio``,
 ``sweep.proc``, ``viz.quicklooks``, ``native`` with its C++ sources, the
 codec API of ``codecs.base``, the host codecs ``codecs.ccsds123_std``,
-``codecs.jpegls_codec`` and ``codecs.png_codec``, the BPE bindings
-``codecs.bpe122`` and the host Rice / bit-plane / run-length coder inside
-``codecs.wavelet_common``) instead of importing tpukit. Here the copies are
+``codecs.jpegls_codec`` and ``codecs.png_codec``, the wrapper seams
+``codecs.shell`` and ``codecs.extern``, the figures of ``viz.figures``, the
+BPE bindings ``codecs.bpe122`` and the host Rice / bit-plane / run-length
+coder inside ``codecs.wavelet_common``) instead of importing tpukit. Here
+the copies are
 held to the originals as text (the package name in the imports apart, and
 ``decode_to_device``, which uploads with torch; ``wavelet_common`` function
 by function, since the rest of that module is torch code),
@@ -58,6 +60,8 @@ def _load(name: str, path: Path):
 # leaves to the port's own code
 COPIES = {
     "codecs/bpe122.py": None,
+    "codecs/extern.py": None,
+    "codecs/shell.py": None,
     "codecs/ccsds123_std.py": None,
     "codecs/jpegls_codec.py": None,
     "codecs/png_codec.py": None,
@@ -69,6 +73,7 @@ COPIES = {
     "io/raw.py": None,
     "sweep/csvio.py": None,
     "sweep/proc.py": None,
+    "viz/figures.py": None,
     "viz/quicklooks.py": None,
 }
 

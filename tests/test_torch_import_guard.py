@@ -7,8 +7,9 @@ the CPU), a small tiled J2K device-mode sweep, a device-mode sweep with
 kept streams, a CCSDS-122 rate ladder of each entropy backend with kept
 streams, one sweep of each of the other lossless codecs (CCSDS-123 with
 both predictors, JPEG-LS lossless and near-lossless, PNG), a Case B scene
-streamed in row strips (CCSDS-123 and CCSDS-121, streams kept) and a
-``make-baseline-b`` run through the port's CLI, in two conditions:
+streamed in row strips (CCSDS-123 and CCSDS-121, streams kept), a
+``make-baseline-b`` run, ``tile-complexity``, the ``codec-ccsds121``
+wrapper and ``doctor --smoke`` through the port's CLI, in two conditions:
 JAX absent (an import hook refuses ``jax`` and ``jax.*``), and JAX
 installed but not to be used. In both, no ``jax`` and no ``tpukit``
 module may end up loaded. A source scan backs it up: no file of the port,
@@ -112,7 +113,13 @@ tiff.write_geotiff(raw / "ENMAP-DT01-001-SPECTRAL_IMAGE.TIF",
 rc_b = cli_main_all(["make-baseline-b", "--input-raw", str(raw), "--output", f"{out}/caseB",
                      "--dt", "DT01", "--target-bands", "6", "--tile-size", "16",
                      "--lc", "0,0", "--hc", "16,16", "--device", "cpu"])
+rc_new = [cli_main_all(["tile-complexity", f"{out}/a.tif", f"{out}/t.tif", "--json",
+                        "--device", "cpu"]),
+          cli_main_all(["codec-ccsds121", "--in", f"{out}/t.tif", "--out", f"{out}/w.tif",
+                        "--keep-bitstream", f"{out}/wbit", "--tile", "32", "--device", "cpu"]),
+          cli_main_all(["doctor", "--device", "cpu", "--smoke"])]
 print(json.dumps({"others": others, "ccsds122": res122, "ccsds122_cli_rc": rc,
+                  "tile_complexity_wrapper_doctor_rc": rc_new,
                   "streamed": streamed, "make_baseline_b_rc": rc_b,
                   "caseA_device_kept": [r["lossless"] for r in resK["rows"]],
                   "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -139,6 +146,7 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                    "ccsds122_cli_rc": 0,
                    "streamed": {"ccsds123": [1, [32]], "ccsds121": [1, [32]]},
                    "make_baseline_b_rc": 0,
+                   "tile_complexity_wrapper_doctor_rc": [0, 0, 0],
                    "others": {"ccsds123": [[1, 0]], "ccsds123_standard": [[1, 0]],
                               "jpegls": [[1, 0]], "jpegls_near": [[0, 2]],
                               "png": [[1, 0]]}}

@@ -9,6 +9,8 @@ process-memory columns (mem_*) and the IQRs of times; every other file
 (.aec streams, recon.tif, ERR8 and RGB quicklooks) must be byte-equal."""
 
 import csv
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +25,8 @@ from tpukit_torch.kernels.fs_table import fs_table
 from tpukit_torch.sweep.runner import SweepConfig, run_sweep
 
 torch.set_num_threads(2)        # xdist workers share the host
+
+_REPO = Path(__file__).resolve().parent.parent
 
 
 def _volatile(col: str) -> bool:
@@ -116,33 +120,56 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
 @pytest.mark.parametrize("extra", [["--mesh", "2"],
                                    ["--stream-rows", "32", "--codec",
                                     "ccsds121", "--tile", "32"],
-                                   ["--profile", "prof"],
-                                   ["--compressor-cmd", "aec"],
-                                   ["--compressor-cmd", "aec", "--", "-n",
-                                    "16"],
+                                   ["--profile", "{tmp}/prof", "--codec",
+                                    "ccsds121", "--tile", "32"],
+                                   ["--compressor-cmd", "{python}", "{wrap}",
+                                    "--codec", "ccsds121_ext"],
+                                   ["--compressor-cmd", "{python}", "{wrap}",
+                                    "--codec", "ccsds121_ext", "--", "--tile",
+                                    "32"],
                                    ["--codec", "j2k", "--entropy", "device",
                                     "--keep-bitstream"],
                                    ["--codec", "ccsds122"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, caseb_tiles, extra):
-    """Options the port does not have yet raise, naming their ROADMAP
-    item, before any input is read; arguments after ``--`` reach that
-    refusal and not argparse's exit. What has been ported since (scene
-    streaming in row strips, the device mode's kept streams, CCSDS-122)
-    runs the sweep and returns 0, as tpukit's ``run_codec_main`` does."""
+    """``--mesh``, which the port does not have yet, raises naming its
+    ROADMAP item before any input is read. What has been ported since
+    (scene streaming in row strips, ``--profile``, ``--compressor-cmd``
+    with the arguments after ``--`` passed through to the wrapper, the
+    device mode's kept streams, CCSDS-122) runs the sweep and returns 0,
+    as tpukit's ``run_codec_main`` does, with tpukit's bytes: the
+    ``--compressor-cmd`` runs drive the port's ``codec-ccsds121`` wrapper
+    in a child process, held against tpukit's codec run in this process
+    with the wrapper's options."""
     from tpukit.cli.main import run_codec_main as jax_run_codec
     from tpukit_torch.cli.main import main, run_codec_main
 
     argv = ["--indices", str(tmp_path / "absent.json"), "--codec",
             "ccsds121", "--outdir", str(tmp_path), "--device", "cpu"]
-    if "--codec" not in extra:
+    if extra[0] == "--mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_codec_main(argv + extra)
         return
+    wrap = tmp_path / "wrap.py"
+    wrap.write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {str(_REPO)!r})\n"
+        "from tpukit_torch.cli.main import main\n"
+        "sys.exit(main(['codec-ccsds121', '--device', 'cpu', "
+        "*sys.argv[1:]]))\n")
+    fill = {"{tmp}/prof": str(tmp_path / "prof"), "{python}": sys.executable,
+            "{wrap}": str(wrap)}
+    extra = [fill.get(x, x) for x in extra]
     argv = ["--indices", str(caseb_tiles), "--rate-key", "none", "--reps",
-            "1", "--no-artifacts", *extra]
+            "1", "--no-artifacts"]
+    port_extra = extra
+    if "--compressor-cmd" in extra:
+        # tpukit's in-process codec with the wrapper's options
+        extra = ["--codec", "ccsds121", "--tile",
+                 "32" if "--" in extra else "512"]
+    # the arguments after "--" go last: they all pass through
     got = run_codec_main(argv + ["--outdir", str(tmp_path / "port"),
-                                 "--device", "cpu"])
-    want = jax_run_codec(argv + ["--outdir", str(tmp_path / "jax")])
+                                 "--device", "cpu"] + port_extra)
+    want = jax_run_codec(argv + extra + ["--outdir", str(tmp_path / "jax")])
     assert got == want == 0
     _, rows = _read_csv(tmp_path / "port" / "metrics.csv")
     _, jrows = _read_csv(tmp_path / "jax" / "metrics.csv")
@@ -150,7 +177,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, caseb_tiles, extra):
             for r in rows] == \
         [(r["tile_id"], r["bitstream_bytes"], r["lossless"]) for r in jrows]
     assert [r["lossless"] for r in rows] == ["1", "1"]
+    if "--profile" in port_extra:
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     # the entry point hands the command's code on
     assert main(["run-codec"] + argv + ["--outdir", str(tmp_path / "again"),
-                                        "--device", "cpu"]) == 0
+                                        "--device", "cpu"] + port_extra) == 0
     assert main(["no-such-command"]) == 2

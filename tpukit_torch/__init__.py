@@ -18,12 +18,18 @@ PNG and CCSDS-122 (all six of ``run-codec``):
     ``codecs.wavelet_common``, ``codecs.bpe122``), built from the port's
     own copy of tpukit's sources (``tpukit_torch/native/src``).
 
+``python -m tpukit_torch`` has tpukit's 15 commands: the sweep runner, the
+baselines, ``tile-complexity`` (``analysis.complexity``, torch on the
+device), ``doctor``, the six ``codec-*`` wrappers (``cli.wrappers``, with
+``codecs.shell`` and ``codecs.extern`` for external wrappers and binaries),
+``quicklooks`` and the figure commands (``viz.figures``).
+
 Module names mirror ``tpukit/`` so each counterpart is easy to find. The
 package imports ``torch`` and never ``jax``, and nothing of tpukit: the host
 modules it needs are its own copies (``io.{tiff,jp2,j2c_enc,manifest,raw,
-bitdepth}``, ``sweep.{csvio,proc}``, ``viz.quicklooks``, ``native``,
-``codecs.base``, ``codecs.bpe122``, the host coder in
-``codecs.wavelet_common``).
+bitdepth}``, ``sweep.{csvio,proc}``, ``viz.{quicklooks,figures}``,
+``native``, ``codecs.base``, ``codecs.bpe122``, ``codecs.{shell,extern}``,
+the host coder in ``codecs.wavelet_common``).
 """
 
 __version__ = "0.1.0"

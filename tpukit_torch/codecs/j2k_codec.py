@@ -724,6 +724,35 @@ class J2KCodec(Codec):
             bitstreams=None, extras={"quality_used": q})
             for i, q in enumerate(qualities)]
 
+    def sweep_rd(self, cube: np.ndarray, dtype_name: str, qualities,
+                 valid: np.ndarray | None = None, device=None) -> list:
+        """Full RD ladder (tpukit j2k_codec.py:848-874):
+        :meth:`sweep_qualities`, then ``quality_stats`` of every point on
+        the same device (``base.work_device``: ``device``, else CUDA),
+        stacked there and fetched after the last point. Returns
+        ``[(CodecResult, metrics dict)]`` with the reference metric keys
+        (run_codec.py:294-304)."""
+        from tpukit_torch.io.bitdepth import effective_data_range
+        from tpukit_torch.metrics.quality import (assemble_quality_many,
+                                                  quality_stats)
+
+        dev = work_device({"device": device})
+        ref_dev = torch.from_numpy(cube.astype(np.int32)).to(dev)
+        vm = (torch.ones(cube.shape[-2:], dtype=torch.bool, device=dev)
+              if valid is None
+              else torch.from_numpy(np.asarray(valid).astype(bool)).to(dev))
+        dr = float(effective_data_range(cube, dtype_name))
+        results = self.sweep_qualities(cube, dtype_name, qualities,
+                                       device=dev)
+        if not results:
+            return []
+        stats = [quality_stats(ref_dev, r.recon.to(torch.int32), vm)
+                 for r in results]
+        # stacked on the device, copied back once all points are done
+        host = {k: torch.stack([s[k] for s in stats]).cpu().numpy()
+                for k in stats[0]}
+        return list(zip(results, assemble_quality_many(host, dr)))
+
     def _sweep_qualities_kept(self, cube, qualities, bases, inv_bases, coefs,
                               perm_coefs, t_dwt, recons, s1d, s2d, c,
                               dev) -> list:

@@ -7,7 +7,8 @@ CCSDS-123 band weights:
 
   * ``from_tpukit_codec`` builds the port's codec from a tpukit one (every
     constructor argument of CCSDS121Codec, CCSDS122Codec, CCSDS123Codec,
-    JPEGLSCodec, PNGCodec and J2KCodec);
+    JPEGLSCodec, PNGCodec and J2KCodec, and of the wrapper seams ShellCodec
+    and ExternalCodec);
   * the plan is tpukit's plain dict in both packages (keys ``n``,
     ``sizes``, ``k_in``, ``bit_off``, ``seg_bits``, ``total_bits``,
     ``bits``, ``J``, ``rsi``, ``preprocess``), so the host coder
@@ -46,8 +47,22 @@ _ARGS = {
 }
 
 
+# ExternalCodec's structure options, kept as attributes of the same names
+_EXTERNAL_ARGS = ("structure", "tile", "interleave", "preproc", "nbit",
+                  "crop_nodata", "bit_ext", "name", "use_uss")
+
+
 def from_tpukit_codec(codec):
     """The port's codec with a tpukit codec's configuration."""
+    kind = type(codec).__name__
+    if kind == "ShellCodec":
+        from tpukit_torch.codecs.shell import ShellCodec
+        return ShellCodec(codec.command, codec.extra_args,
+                          label=codec.encoder_desc)
+    if kind == "ExternalCodec":
+        from tpukit_torch.codecs.extern import ExternalCodec
+        return ExternalCodec(codec.enc_tpl, codec.dec_tpl,
+                             **{k: getattr(codec, k) for k in _EXTERNAL_ARGS})
     name = getattr(codec, "name", None)
     if name not in _ARGS:
         raise NotImplementedError(
