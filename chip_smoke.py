@@ -142,7 +142,28 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      names K1's kernel, both walls; (g) ``doctor --smoke --device cuda``:
      rc 0, every row ok; (h) ``rd-curve`` from phase 5's metrics_mean.csv
      where pandas and matplotlib import, else the refusal naming the one
-     that is missing.
+     that is missing;
+ 11. the device mesh (``--mesh DP[,SP]``, tpukit_torch/parallel/mesh.py;
+     eight positions on one card, wrapped round-robin): (a) phase 6b's
+     device ladder on the two 1024²×4 tiles at ``--mesh 4,2`` and
+     ``--mesh 1``: rows but the time and memory columns and every artifact
+     equal, bytes equal to phase 6b's no-mesh run with PSNR/SSIM within
+     rel 1e-4 (whether exactly equal is logged), K2 4 launches on each
+     position that takes a point, K1 3 a point; one more ``--mesh 4,2``
+     rep under ``torch.profiler``; (b) phase 3's Case B command at
+     ``--mesh 4,2``: one plan of 16 chunks equal to one position's plan of
+     the same chunks and as long as phase 3's, K1 once a chunk, every
+     rep's stream == phase 3's, lossless, rows == phase 3's; (c) phase 8a's
+     BPE ladder at ``--mesh 4,2``: rows and every file (kept streams,
+     recons, quicklooks) == phase 8a's; (d) a 180×1024×512 Case B scene
+     streamed in 512-row strips, 2 reps, streams kept, at ``--mesh 2`` and
+     without: rows and files equal, K1 the same; (e) ``run_sharded_batch``
+     and ``sharded_metric_ladder`` at dp=4, sp=2 on eight lanes of a
+     (4, 512, 512) cube: eight positions on the card against one (floats
+     within rel 1e-5) and against eight on the CPU (SAM/SID/LMSE within
+     rel 1e-3), integers exact; (f) the current device unchanged after
+     phase 2 and every case, and with two cards or more K1 and K2 on
+     cuda:1 and ``--mesh 2`` across two cards == ``--mesh 1``.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -152,6 +173,7 @@ nothing of tpukit: the input recipes are copies of bench.py's.
 
 import contextlib
 import csv
+import hashlib
 import io
 import json
 import math
@@ -185,6 +207,7 @@ from tpukit_torch.kernels.dwt import dwt2, idwt2
 from tpukit_torch.native import ccsds121_host
 from tpukit_torch.kernels.dwt97 import TAIL_MAX, dwt97, dwt97_ref, plan
 from tpukit_torch.kernels.fs_table import fs_table, fs_table_ref
+from tpukit_torch.parallel import mesh as pmesh
 from tpukit_torch.sweep import runner
 
 BANDS, SIZE = 180, 512
@@ -522,7 +545,8 @@ def write_caseb_index(work: Path, cube: np.ndarray, name="caseB") -> Path:
 def run_slice(work: Path, cube: np.ndarray, card: str):
     """Phase 3: the Case B anchor sweep through the port's CLI on CUDA;
     returns K1's launch count in the sweep, the stream's bytes, and the
-    stream and rep 1's CSV row (phase 10 holds the wrappers to them)."""
+    stream, rep 1's CSV row (phase 10 holds the wrappers to them), every
+    row and the plan (phase 11b holds the mesh run to them)."""
     idx = write_caseb_index(work, cube)
 
     plans = []
@@ -592,16 +616,19 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     log(f"[slice] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
         f"{launches} K1 launches, {len(serial)} B stream, hbm peak "
         f"{rows[0].get('hbm_peak_mb')} MiB on {card}")
-    return launches, len(serial), {"stream": serial, "row": rows[0]}
+    return launches, len(serial), {"stream": serial, "row": rows[0],
+                                   "rows": rows, "plan": plans[0]}
 
 
 def metric_pass(device, cube, lanes, valid):
     """The runner's device pass (dispatch + finalize) on one device."""
     ref = torch.from_numpy(cube).to(device)
     vm = torch.from_numpy(valid).to(device)
+    ql_dev = tuple(torch.from_numpy(a).to(device)
+                   for a in runner._ql_inputs((255, 40), valid, lanes))
     chunks = runner._device_pass_dispatch(
         device, ref, vm, vm, lanes, runner._metric_chunk(*cube.shape), 0.0,
-        False, True, src_valid=valid, ql_caps=(255, 40), ref_host=cube)
+        False, True, ql_dev=ql_dev, ref_host=cube)
     met, e8, _ = runner._device_pass_finalize(chunks, 8191, True)
     return met, e8
 
@@ -949,7 +976,8 @@ def write_index(work: Path, tiles, name: str) -> Path:
 def run_device_ladder(work: Path, tiles, card):
     """Phase 6b: the untiled device-mode quality ladder through the port's
     CLI on CUDA; returns (K1, K2) launch counts of the sweep and the HC
-    tile's rep 1 rows by quality (phase 10 holds ``sweep_rd`` to them)."""
+    tile's rep 1 rows by quality (phase 10 holds ``sweep_rd`` to them) and
+    every row (phase 11a holds the mesh ladder to them)."""
     idx = write_index(work, tiles, "ladder")
     fs_table.launches = 0
     dwt97.launches = 0
@@ -1008,7 +1036,7 @@ def run_device_ladder(work: Path, tiles, card):
     for r in rows:
         if r["tile_id"] == "HC":
             hc_rep1.setdefault(int(num(r["rate_value"])), r)
-    return k1, k2, hc_rep1
+    return k1, k2, hc_rep1, rows
 
 
 def run_device_lossless(work: Path, tile: np.ndarray, card):
@@ -1439,7 +1467,8 @@ def decode_ccsds122(streams: dict, tile: np.ndarray, entropy: str,
 
 def run_ccsds122(work: Path, tiles, dev, card, entropy: str):
     """Phases 8a and 8b: the CCSDS-122 rate ladder of one entropy backend
-    through the port's CLI on CUDA; returns K1's launch count."""
+    through the port's CLI on CUDA; returns K1's launch count and the rows
+    and files of the sweep (phase 11c holds the mesh run to them)."""
     idx = write_index(work, tiles, f"c122{entropy}")
     out = work / f"runs122{entropy}"
     argv = ["--indices", str(idx), "--codec", "ccsds122", "--entropy",
@@ -1537,7 +1566,7 @@ def run_ccsds122(work: Path, tiles, dev, card, entropy: str):
     log(f"[{tag}] sweep wall {wall:.2f} s, phases {res['phases']}, {k1} K1 "
         f"launches, hbm peak {rows[-1].get('hbm_peak_mb')} MiB (process "
         f"peak, reset before the sweep) on {card}")
-    return k1
+    return k1, {"rows": rows, "digest": tree_digest(out)}
 
 
 def ccsds122_stages(tile: np.ndarray, dev, card):
@@ -1726,21 +1755,21 @@ def run_phase8(tiles, cube, dev, card):
     t8 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         work = Path(tmp)
-        bpe_k1 = run_ccsds122(work, tiles, dev, card, "bpe")
+        bpe_k1, bpe_ref = run_ccsds122(work, tiles, dev, card, "bpe")
         ccsds122_stages(tiles["HC"], dev, card)
         idx = write_index(work, tiles, "c122bpe")
         traced_sweep("ccsds122 bpe", [
             "--indices", str(idx), "--codec", "ccsds122", "--rate-key",
             "bpp", "--rates", *RATES_122, "--reps", "1", "--keep-bitstream",
             "--outdir", str(work / "runs122t"), "--device", "cuda"], card)
-        emb_k1 = run_ccsds122(work, tiles, dev, card, "embedded")
+        emb_k1, _ = run_ccsds122(work, tiles, dev, card, "embedded")
         crop = np.ascontiguousarray(make_scene(
             np.random.default_rng(2026))[:, :, 8 * SCENE_TILE:])
         ((kept_k1, kept_k2), (tiled_k1, tiled_k2)), kept_q40 = run_j2k_kept(
             work, tiles["HC"], crop, dev, card)
         run_ccsds122_caseb(work, cube, card)
     log(f"[ccsds122] phase 8 in {time.perf_counter() - t8:.1f} s")
-    return {"kept_q40": kept_q40,
+    return {"kept_q40": kept_q40, "bpe_ref": bpe_ref,
             "k1": {"ccsds122_bpe": bpe_k1,
                    "ccsds122_embedded_lossless": emb_k1,
                    "j2k_device_kept": kept_k1,
@@ -2630,6 +2659,390 @@ def run_phase10(card, tiles, cube, refs):
             "k2": {k: v for k, v in k2.items() if v}}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh on the card (--mesh DP[,SP], parallel/mesh.py)
+
+MESH = "4,2"                     # eight positions, on one card or wrapped
+MESH_STREAM_SCENE = (BANDS, 1024, 512)     # 11d: two 512-row strips
+MESH_STREAM_ROWS = 512
+
+
+def tree_digest(out: Path) -> dict:
+    """{path: sha256} of every file of a run directory but its CSVs."""
+    return {str(p.relative_to(out)):
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(out.rglob("*"))
+            if p.is_file() and p.suffix != ".csv"}
+
+
+def same_device(dev0: int, tag: str):
+    """The caller's current device after a phase's launches."""
+    if torch.cuda.current_device() != dev0:
+        raise AssertionError(f"{tag}: the current device moved from "
+                             f"cuda:{dev0} to cuda:"
+                             f"{torch.cuda.current_device()}")
+
+
+def mesh_sweep(tag: str, argv, mesh, out: Path, card):
+    """One ``run-codec`` sweep on the card with ``--mesh mesh`` (none when
+    None), K1 and K2 counted from 0, the device-memory peak reset before;
+    returns (rows, K1, K2, wall s)."""
+    dev0 = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs_table.launches = 0
+    dwt97.launches = 0
+    t0 = time.perf_counter()
+    res = run_codec(argv + ["--outdir", str(out), "--device", "cuda"]
+                    + (["--mesh", mesh] if mesh else []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = fs_table.launches, dwt97.launches
+    same_device(dev0, tag)
+    log(f"[{tag}] {f'--mesh {mesh}' if mesh else 'no mesh'}: sweep wall {wall:.2f} s, phases "
+        f"{res['phases']}, {k1} K1 and {k2} K2 launches, hbm_peak_mb "
+        f"{torch.cuda.max_memory_allocated() / (1 << 20):.1f} (reset before "
+        f"the sweep) on {card}")
+    return read_rows(out / "metrics.csv"), k1, k2, wall
+
+
+def run_mesh_ladder(work: Path, tiles, ref_rows, card):
+    """11a: the Case A device ladder with ``--mesh 4,2`` and ``--mesh 1``:
+    CSVs equal but the time and memory columns, every artifact byte-equal
+    (rep 1's recon.tif included), bytes equal to phase 6b's no-mesh CSV
+    and PSNR/SSIM within rel 1e-4 of it; K2 four launches a transform on
+    every position that takes a point, K1 three a point. With two cards or
+    more, ``--mesh 2`` across two of them == ``--mesh 1``. Returns the
+    launch counts by path."""
+    idx = write_index(work, tiles, "mesh_ladder")
+    argv = ["--indices", str(idx), "--codec", "j2k", "--entropy", "device",
+            "--rate-key", "quality", "--rates", *map(str, RATES_A)]
+    k2_dwt = len(plan(1024, 1024, 5))
+    got = {}
+    for mesh, npos in ((MESH, 8), ("1", 1)):
+        rows, k1, k2, _ = mesh_sweep("11a", argv + ["--reps", "3"], mesh,
+                                     work / f"ladder_{npos}", card)
+        want_k2 = min(npos, len(RATES_A)) * k2_dwt * 3 * len(tiles)
+        want_k1 = 3 * len(RATES_A) * 3 * len(tiles)
+        if (k1, k2) != (want_k1, want_k2):
+            raise AssertionError(f"11a --mesh {mesh}: K1 {k1}, K2 {k2}; "
+                                 f"expected {want_k1}, {want_k2}")
+        got[mesh] = (rows, k1, k2)
+    same_rows(got[MESH][0], got["1"][0], "11a --mesh 4,2 vs --mesh 1")
+    d8, d1 = tree_digest(work / "ladder_8"), tree_digest(work / "ladder_1")
+    if d8 != d1 or not any(k.endswith("rep_01/recon.tif") for k in d8):
+        raise AssertionError("11a: the artifacts of --mesh 4,2 != --mesh 1")
+    exact, worst = True, 0.0
+    for g, w in zip(got[MESH][0], ref_rows):
+        if (g["tile_id"], g["rate_value"], g["bitstream_bytes"]) != \
+                (w["tile_id"], w["rate_value"], w["bitstream_bytes"]):
+            raise AssertionError(f"11a: bytes != phase 6b's: {g} / {w}")
+        for col in ("psnr_global", "ssim_global"):
+            a, b = num(g[col]), num(w[col])
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            worst = max(worst, rel)
+            if rel > 1e-4:
+                raise AssertionError(f"11a {col}: {a} vs phase 6b's {b}")
+    try:
+        same_rows(got[MESH][0], ref_rows, "11a vs 6b")
+    except AssertionError:
+        exact = False
+    log(f"[11a] --mesh 4,2 == --mesh 1 (rows but time and memory, {len(d8)} "
+        f"files byte-equal); bytes == phase 6b's no-mesh run, PSNR/SSIM "
+        f"worst rel {worst:.2e}; rows exactly equal to 6b's: {exact}")
+    traced_sweep("11a mesh", argv + [
+        "--reps", "1", "--no-artifacts", "--mesh", MESH, "--outdir",
+        str(work / "ladder_traced"), "--device", "cuda"], card)
+    paths = {"k1": {"mesh_ladder_4x2": got[MESH][1],
+                    "mesh_ladder_1": got["1"][1]},
+             "k2": {"mesh_ladder_4x2": got[MESH][2],
+                    "mesh_ladder_1": got["1"][2]}}
+    if torch.cuda.device_count() >= 2:
+        rows2, k1, k2, _ = mesh_sweep("11f", argv + ["--reps", "1"], "2",
+                                      work / "ladder_2cards", card)
+        same_rows(rows2, got["1"][0][::3], "11f --mesh 2 on two cards")
+        log("[11f] --mesh 2 across two cards == --mesh 1 (rep 1 rows)")
+        paths["k1"]["mesh_ladder_2cards"] = k1
+        paths["k2"]["mesh_ladder_2cards"] = k2
+    return paths
+
+
+def run_mesh_anchor(work: Path, cube: np.ndarray, anchor, card) -> int:
+    """11b: bench.py's Case B command with ``--mesh 4,2``: one mesh plan,
+    equal to the plan of the same stream at the same chunk on one
+    position and as long as phase 3's plan; K1 once per chunk; every
+    rep's stream == phase 3's (the serial coder's) and lossless; the rows
+    == phase 3's but the time and memory columns. Returns K1."""
+    idx = write_caseb_index(work, cube, "caseB_mesh")
+    plans = []
+    encode_plan = model.encode_plan
+
+    def recording_plan(*a, **kw):
+        plans.append(encode_plan(*a, **kw))
+        return plans[-1]
+
+    model.encode_plan = recording_plan
+    try:
+        rows, k1, k2, _ = mesh_sweep("11b", [
+            "--indices", str(idx), "--codec", "ccsds121", "--rate-key",
+            "none", "--reps", "3", "--preproc", "none", "--nbit", "16",
+            "--interleave", "bip", "--tile", str(SIZE), "--keep-bitstream"],
+            MESH, work / "anchor_mesh", card)
+    finally:
+        model.encode_plan = encode_plan
+    n = BANDS * SIZE * SIZE
+    chunk = min(PLAN_CHUNK, max(16, n // 16))      # 8 positions
+    chunk -= chunk % 16
+    if len(plans) != 1 or plans[0] is None:
+        raise AssertionError(f"11b: expected one mesh plan, got {plans}")
+    (pm,) = plans
+    if k1 != len(pm["sizes"]) or pm["sizes"][0] != chunk:
+        raise AssertionError(f"11b: K1 {k1} for {len(pm['sizes'])} chunks "
+                             f"of {pm['sizes'][0]} samples (want {chunk})")
+    flat = flat_stream(torch.from_numpy(cube).cuda(), 0, 0, SIZE, SIZE,
+                       "none", "bip")
+    if pm != model.encode_plan(flat, chunk=chunk):
+        raise AssertionError("11b: mesh plan != one position's plan")
+    if pm["total_bits"] != anchor["plan"]["total_bits"]:
+        raise AssertionError("11b: mesh plan's length != phase 3's plan's")
+    for rep in range(1, 4):
+        d = work / "anchor_mesh" / "T01" / "norate" / f"rep_{rep:02d}"
+        if (d / "bit" / "t_x00000_y00000.aec").read_bytes() != \
+                anchor["stream"]:
+            raise AssertionError(f"11b rep {rep}: stream != serial coder")
+    same_rows(rows, anchor["rows"], "11b vs phase 3")
+    log(f"[11b] mesh plan of {len(pm['sizes'])} chunks == one position's, "
+        f"{pm['total_bits']} bits as phase 3's; 3 reps lossless, streams == "
+        f"the serial coder's, rows == phase 3's; {k1} K1 launches")
+    return k1
+
+
+def run_mesh_ccsds122(work: Path, tiles, ref, card):
+    """11c: phase 8a's CCSDS-122 BPE ladder with ``--mesh 4,2``: rows,
+    kept streams and recons (every file) == phase 8a's."""
+    idx = write_index(work, tiles, "mesh122")
+    rows, k1, k2, _ = mesh_sweep("11c", [
+        "--indices", str(idx), "--codec", "ccsds122", "--entropy", "bpe",
+        "--rate-key", "bpp", "--rates", *RATES_122, "--reps", "1",
+        "--keep-bitstream"], MESH, work / "c122_mesh", card)
+    same_rows(rows, ref["rows"], "11c vs phase 8a")
+    dig = tree_digest(work / "c122_mesh")
+    if dig != ref["digest"]:
+        raise AssertionError("11c: files != phase 8a's: " + str(sorted(
+            k for k in set(dig) | set(ref["digest"])
+            if dig.get(k) != ref["digest"].get(k))[:5]))
+    log(f"[11c] --mesh 4,2 BPE ladder: rows and {len(dig)} files (kept .bpe "
+        f"streams, recons, quicklooks) == phase 8a's; K1 {k1}, K2 {k2}")
+    return k1
+
+
+def run_mesh_stream(work: Path, card):
+    """11d: a 180 x 1024 x 512 Case B scene streamed in 512-row strips
+    through the anchor's CCSDS-121 flags, 2 reps, streams kept, with
+    ``--mesh 2`` and without: rows and every file equal, K1 the same."""
+    cube = make_caseb_scene(np.random.default_rng(11), *MESH_STREAM_SCENE,
+                            "cuda")
+    src = work / "mesh_scene.tif"
+    tiff.write_geotiff(src, cube, blockxsize=512, blockysize=512)
+    idx = work / "index_mesh_scene.json"
+    manifest.write_manifest(idx, "caseB", "scene",
+                            [{"tile_id": "meshB", "path": src}])
+    argv = ["--indices", str(idx), "--codec", "ccsds121", "--rate-key",
+            "none", "--reps", "2", "--preproc", "none", "--nbit", "16",
+            "--interleave", "bip", "--tile", str(SIZE), "--keep-bitstream",
+            "--stream-rows", str(MESH_STREAM_ROWS)]
+    r0, k1_0, _, _ = mesh_sweep("11d", argv, None, work / "stream_single",
+                                card)
+    r2, k1_2, _, _ = mesh_sweep("11d", argv, "2", work / "stream_mesh", card)
+    same_rows(r2, r0, "11d --mesh 2 vs no mesh")
+    d0, d2 = tree_digest(work / "stream_single"), tree_digest(
+        work / "stream_mesh")
+    if d0 != d2:
+        raise AssertionError("11d: streamed files differ with --mesh 2")
+    tiles = (MESH_STREAM_SCENE[1] // SIZE) * (MESH_STREAM_SCENE[2] // SIZE)
+    n = BANDS * SIZE * SIZE           # a tile's stream; planned once a strip
+    want = (-(-n // PLAN_CHUNK) if n > PLAN_CHUNK else 0) * tiles * 2
+    if not k1_0 == k1_2 == want:
+        raise AssertionError(f"11d: K1 {k1_0} / {k1_2}, expected {want}")
+    if [r["lossless"] for r in r2] != ["1", "1"]:
+        raise AssertionError(f"11d: not lossless: {r2}")
+    log(f"[11d] streamed with --mesh 2 == without: rows, {len(d0)} files "
+        f"(recon.tif, strip streams, quicklooks); {k1_2} K1 launches each")
+    return k1_2
+
+
+def close(got, want, rel, tag):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    if not np.all(np.isfinite(got)) or err.max() > rel:
+        raise AssertionError(f"{tag}: worst rel {err.max():.2e} > {rel}")
+    return float(err.max())
+
+
+# per-band first centred moments are zero in exact arithmetic: held through
+# the PSNR/SSIM they feed, not alone
+_CENTRED = ("sum_ac", "sum_rc")
+
+
+def hold_steps(a: dict, b: dict, tag: str, spectral_rel: float) -> float:
+    """Two runs of the library steps: integers exact, float32 sums within
+    rel 1e-5 (spectral ones within ``spectral_rel``)."""
+    worst = 0.0
+    for key in sorted(a):
+        x, y = a[key], b[key]
+        if isinstance(x, dict):
+            worst = max(worst, hold_steps(x, y, f"{tag}.{key}",
+                                          spectral_rel))
+            continue
+        if key in _CENTRED:
+            continue
+        if x.dtype.kind in "iub" or key == "n":
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{tag}.{key}: integers differ")
+            continue
+        rel = spectral_rel if key in ("sam_sum", "sid_sum", "lmse") else 1e-5
+        worst = max(worst, close(x, y, rel, f"{tag}.{key}"))
+    return worst
+
+
+def run_mesh_steps(card) -> int:
+    """11e: ``run_sharded_batch`` and ``sharded_metric_ladder`` at dp=4,
+    sp=2 on 8 lanes of a (4, 512, 512) uint16 12-in-16 cube: eight
+    positions on the card against one position on the card (float32 within
+    rel 1e-5: the band axis cut into slices) and against eight on the CPU
+    (quality within rel 1e-5; SAM/SID/LMSE within rel 1e-3, as in phase 4:
+    float32 sums in another order); integers exact, and the derived
+    PSNR/SSIM within rel 1e-5 on the card. Returns K1's launches in the
+    card's mesh step (one a tile)."""
+    from tpukit_torch.metrics.quality import assemble_quality_many
+
+    rng = np.random.default_rng(5)
+    cube = (rng.integers(0, 4096, (4, 512, 512)).astype(np.uint16) << 4)
+    lanes = [np.clip(cube.astype(np.int32) + rng.integers(-a, a + 1,
+                                                          cube.shape),
+                     0, 65535).astype(np.uint16)
+             for a in (0, 16, 48, 160, 400, 1600, 4000, 16000)]
+    valid = rng.random((512, 512)) > 0.05
+    tiles = np.stack([cube] * 8)
+    meshes = {"card": pmesh.make_mesh(["cuda"] * 8, dp=4, sp=2),
+              "card1": pmesh.make_mesh(["cuda"], dp=1, sp=1),
+              "cpu": pmesh.make_mesh(["cpu"] * 8, dp=4, sp=2)}
+    batch, ladder = {}, {}
+    dev0 = torch.cuda.current_device()
+    for name, m in meshes.items():
+        fs_table.launches = 0
+        t0 = time.perf_counter()
+        batch[name] = pmesh.run_sharded_batch(
+            tiles, np.stack(lanes), np.stack([valid] * 8), m)
+        t_batch = time.perf_counter() - t0
+        if name == "card":
+            k1 = fs_table.launches
+        ref, stack, vm, sam, nod, n_real = pmesh.place_ladder_inputs(
+            m, cube, lanes, valid, valid, 0.0)
+        t0 = time.perf_counter()
+        qs, ss = pmesh.sharded_metric_ladder(m, False, True)(
+            ref, stack, vm, sam, nod)
+        ladder[name] = {"quality": {k: v.cpu().numpy()[:n_real]
+                                    for k, v in qs.items()},
+                        "spectral": {k: v.cpu().numpy()[:n_real]
+                                     for k, v in ss.items()}}
+        log(f"[11e] {name}: run_sharded_batch {t_batch:.2f} s, "
+            f"sharded_metric_ladder {time.perf_counter() - t0:.2f} s "
+            f"(host clock) on {card if name != 'cpu' else 'the CPU'}")
+    same_device(dev0, "11e")
+    if k1 != len(tiles):
+        raise AssertionError(f"11e: K1 launched {k1} times, expected "
+                             f"{len(tiles)}")
+    w1 = hold_steps(batch["card"], batch["card1"], "11e batch 8 vs 1", 1e-5)
+    w2 = hold_steps(ladder["card"], ladder["card1"], "11e ladder 8 vs 1",
+                    1e-5)
+    w3 = hold_steps(batch["card"], batch["cpu"], "11e batch card vs CPU",
+                    1e-3)
+    w4 = hold_steps(ladder["card"], ladder["cpu"], "11e ladder card vs CPU",
+                    1e-3)
+    for res in (batch, ladder):
+        mets = {k: assemble_quality_many(res[k]["quality"], 65535.0)
+                for k in res}
+        for a, b in zip(mets["card"], mets["card1"]):
+            for key in ("psnr_global", "ssim_global"):
+                if math.isfinite(b[key]):
+                    close(a[key], b[key], 1e-5, f"11e {key}")
+    log(f"[11e] eight positions on the card == one (integers exact, floats "
+        f"worst rel {max(w1, w2):.2e}), == eight on the CPU (integers exact, "
+        f"floats worst rel {max(w3, w4):.2e}); {k1} K1 launches")
+    return k1
+
+
+def check_other_card(card):
+    """11f on two cards or more: K1 and K2 on cuda:1 leave the current
+    device where it was and equal their plain versions, through their
+    wrappers and through the C entry points called directly (the wrappers
+    also launch under ``torch.cuda.device``)."""
+    dev0 = torch.cuda.current_device()
+    x = torch.randint(0, 1 << 16, (4096, 64), dtype=torch.int32,
+                      device="cuda:1")
+    if not torch.equal(fs_table(x).cpu(), fs_table_ref(x.cpu())):
+        raise AssertionError("11f: K1 on cuda:1 != its plain version")
+    same_device(dev0, "11f K1 on cuda:1")
+    y = torch.rand((2, 256, 256), device="cuda:1")
+    if not torch.equal(dwt97(y, 3).cpu(), dwt97_ref(y.cpu(), 3)):
+        raise AssertionError("11f: K2 on cuda:1 != its plain version")
+    same_device(dev0, "11f K2 on cuda:1")
+    lib = build.load()
+    stream = torch.cuda.current_stream(1).cuda_stream
+    out = torch.empty((4096, 14), dtype=torch.int32, device="cuda:1")
+    err = lib.tpk_fs_table(x.data_ptr(), out.data_ptr(), 4096, 64, 1,
+                           stream)
+    same_device(dev0, "11f tpk_fs_table called on cuda:1")
+    z = torch.rand((2, 64, 64), device="cuda:1")
+    res = torch.empty_like(z)
+    err2 = lib.tpk_dwt97_tail(z.data_ptr(), 64 * 64, 64, 2, 64, 64, 3,
+                              res.data_ptr(), 64 * 64, 64, 1, stream)
+    same_device(dev0, "11f tpk_dwt97_tail called on cuda:1")
+    torch.cuda.synchronize(1)
+    if (err, err2) != (0, 0) or not torch.equal(out.cpu(),
+                                                 fs_table_ref(x.cpu())) \
+            or not torch.equal(res.cpu(), dwt97_ref(z.cpu(), 3)):
+        raise AssertionError(f"11f: direct C calls on cuda:1: {err}, {err2}")
+    log(f"[11f] K1 and K2 on cuda:1 == plain, current device cuda:{dev0} "
+        f"kept; {torch.cuda.device_count()} cards: {card}")
+
+
+def run_phase11(card, tiles, cube, refs):
+    """Phase 11; returns the launch counts by path. ``refs``: phase 3's
+    anchor (stream, rows, plan), phase 6b's rows and phase 8a's BPE rows
+    and files."""
+    t11 = time.perf_counter()
+    times = {}
+    dev0 = torch.cuda.current_device()
+    with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        paths = run_mesh_ladder(work, tiles, refs["ladder_rows"], card)
+        times["11a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["k1"]["mesh_caseb_anchor"] = run_mesh_anchor(
+            work, cube, refs["anchor"], card)
+        times["11b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["k1"]["mesh_ccsds122_bpe"] = run_mesh_ccsds122(
+            work, tiles, refs["bpe_ref"], card)
+        times["11c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["k1"]["mesh_caseb_scene_stream"] = run_mesh_stream(work, card)
+        times["11d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths["k1"]["mesh_analysis_step"] = run_mesh_steps(card)
+        times["11e"] = time.perf_counter() - t0
+    if torch.cuda.device_count() >= 2:
+        check_other_card(card)
+    same_device(dev0, "phase 11")
+    log(f"[mesh] phase 11 in {time.perf_counter() - t11:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+        + f"); current device cuda:{dev0} after every case on {card}")
+    return paths
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -2662,9 +3075,13 @@ def main():
 
     model._scan_clamps = counting_scan
 
-    # phase 2: K1 and K2 against their plain versions, and their times
+    # phase 2: K1 and K2 against their plain versions, and their times;
+    # neither may move the current device
+    dev0 = torch.cuda.current_device()
     k1_err, k1_rows = check_fs_table(dev, card)
+    same_device(dev0, "phase 2 K1")
     k2_err, k2_rows = check_dwt97(dev, card)
+    same_device(dev0, "phase 2 K2")
 
     # phase 3: the slice
     cube = make_caseb_cube(np.random.default_rng(2026), BANDS, SIZE)
@@ -2685,8 +3102,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="tpukit_torch_smoke_") as tmp:
         scene_k1, scene_k2 = run_scene(Path(tmp), scene, dev, card)
         del scene
-        ladder_k1, ladder_k2, ladder_hc = run_device_ladder(Path(tmp), tiles,
-                                                            card)
+        ladder_k1, ladder_k2, ladder_hc, ladder_rows = run_device_ladder(
+            Path(tmp), tiles, card)
         lossless_k1 = run_device_lossless(Path(tmp), tiles["HC"], card)
         fit_k1 = run_device_rate_fit(Path(tmp), tiles["HC"], card)
     log(f"[fast mode] phase 6 in {time.perf_counter() - t6:.1f} s")
@@ -2713,6 +3130,11 @@ def main():
     p10 = run_phase10(card, tiles, cube, {
         "anchor": anchor, "mean_csv": casea_mean_csv,
         "ladder_hc": ladder_hc, "kept_q40": p8["kept_q40"]})
+
+    # phase 11: the device mesh, held to phases 3, 6b and 8a
+    p11 = run_phase11(card, tiles, cube, {
+        "anchor": anchor, "ladder_rows": ladder_rows,
+        "bpe_ref": p8["bpe_ref"]})
 
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))
@@ -2749,12 +3171,13 @@ def main():
                "packer_anchor_stream": pack_anchor_k1,
                "packer_mapped_residuals": pack_mapped_k1,
                "ccsds123_sweep": c123_k1, **p8["k1"], **p9,
-               **p10["k1"]}),
+               **p10["k1"], **p11["k1"]}),
         entry("dwt97", "tpukit_torch/csrc/dwt97.cu",
               "tpukit/kernels/dwt_pallas.py:85", scene_k2, k2_err, k2_rows,
               (32, 1024, 1024),
               {"caseA_ebcot": k2_launches, "scene_row": scene_k2,
-               "device_ladder": ladder_k2, **p8["k2"], **p10["k2"]})]}
+               "device_ladder": ladder_k2, **p8["k2"], **p10["k2"],
+               **p11["k2"]})]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -192,10 +192,23 @@ def test_codec_surface_equals_tpukit(cubes):
 
 @pytest.mark.parametrize("entropy", ["bpe", "embedded"])
 def test_mesh_is_refused_with_its_item(cubes, entropy):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tc.CCSDS122Codec(entropy).sweep_rates(
-            cubes["uint16"], "uint16", [TRate.of("bpp", 1.0)], mesh=object(),
-            device="cpu")
+    """Once refused, the mesh now runs: the BPE ladder's budgets split over
+    dp and its bands over sp (3 bands, sp=2: all positions go on dp), the
+    embedded backend ignoring the mesh as tpukit's does; either way bytes,
+    kept streams and recons equal the port's single-device ladder."""
+    from tpukit_torch.parallel.mesh import make_mesh
+
+    specs = [TRate.of("bpp", v) for v in (0.5, 1.0, 16.0)]
+    for dtype, cube in cubes.items():
+        single = tc.CCSDS122Codec(entropy).sweep_rates(
+            cube, dtype, specs, keep_bitstream=True, device="cpu")
+        meshed = tc.CCSDS122Codec(entropy).sweep_rates(
+            cube, dtype, specs, keep_bitstream=True, device="cpu",
+            mesh=make_mesh(["cpu"] * 8, dp=4, sp=2))
+        for s, m in zip(single, meshed):
+            assert m.bitstream_bytes == s.bitstream_bytes
+            assert m.bitstreams == s.bitstreams
+            assert torch.equal(m.recon, s.recon)
 
 
 def test_device_functions_equal_tpukit(cubes):

@@ -5,7 +5,8 @@ A subprocess imports tpukit_torch (and chip_smoke.py's imports) and runs a
 small Case B sweep, a small Case A sweep (J2K quality ladder, priced on
 the CPU), a small tiled J2K device-mode sweep, a device-mode sweep with
 kept streams, a CCSDS-122 rate ladder of each entropy backend with kept
-streams, one sweep of each of the other lossless codecs (CCSDS-123 with
+streams, ``--mesh`` sweeps (the J2K device ladder, CCSDS-121 and the BPE
+ladder at ``--mesh 4,2``, a streamed scene at ``--mesh 2``), one sweep of each of the other lossless codecs (CCSDS-123 with
 both predictors, JPEG-LS lossless and near-lossless, PNG), a Case B scene
 streamed in row strips (CCSDS-123 and CCSDS-121, streams kept), a
 ``make-baseline-b`` run, ``tile-complexity``, the ``codec-ccsds121``
@@ -73,6 +74,15 @@ resT = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--ent
 resK = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
                        "--rate-key", "quality", "--rates", "40", "100", "--reps", "1", "--keep-bitstream",
                        "--outdir", f"{out}/runsK", "--device", "cpu"])
+mesh = {}
+for tag, argv in {"j2k": ["--indices", f"{out}/idxA.json", "--codec", "j2k", "--entropy", "device",
+                          "--rate-key", "quality", "--rates", "10", "40", "--keep-bitstream"],
+                  "ccsds121": ["--indices", f"{out}/idx.json", "--codec", "ccsds121", "--tile", "32"],
+                  "ccsds122": ["--indices", f"{out}/idxA.json", "--codec", "ccsds122", "--rate-key",
+                               "bpp", "--rates", "1", "16", "--keep-bitstream"]}.items():
+    r = run_codec_main([*argv, "--reps", "2", "--mesh", "4,2", "--outdir", f"{out}/runsM_{tag}",
+                        "--device", "cpu"])
+    mesh[tag] = [row["lossless"] for row in r["rows"]]
 res122 = {}
 for entropy in ("bpe", "embedded"):
     r = run_codec_main(["--indices", f"{out}/idxA.json", "--codec", "ccsds122", "--entropy", entropy,
@@ -101,6 +111,11 @@ for codec in ("ccsds123", "ccsds121"):
                         "--stream-rows", "32", "--keep-bitstream", "--reps", "1",
                         "--outdir", f"{out}/runsS_{codec}", "--device", "cpu"])
     streamed[codec] = [r["rows"][0]["lossless"], [p["rows"] for p in r["phases"]]]
+r = run_codec_main(["--indices", f"{out}/idxS.json", "--codec", "ccsds121", "--tile", "32",
+                    "--stream-rows", "32", "--reps", "1", "--mesh", "2",
+                    "--outdir", f"{out}/runsS_mesh", "--device", "cpu"])
+mesh["stream"] = [r["rows"][0]["lossless"], [p["rows"] for p in r["phases"]]]
+mesh["module"] = "tpukit_torch.parallel.mesh" in sys.modules
 import pathlib
 raw = pathlib.Path(f"{out}/raw")
 raw.mkdir()
@@ -118,7 +133,7 @@ rc_new = [cli_main_all(["tile-complexity", f"{out}/a.tif", f"{out}/t.tif", "--js
           cli_main_all(["codec-ccsds121", "--in", f"{out}/t.tif", "--out", f"{out}/w.tif",
                         "--keep-bitstream", f"{out}/wbit", "--tile", "32", "--device", "cpu"]),
           cli_main_all(["doctor", "--device", "cpu", "--smoke"])]
-print(json.dumps({"others": others, "ccsds122": res122, "ccsds122_cli_rc": rc,
+print(json.dumps({"others": others, "mesh": mesh, "ccsds122": res122, "ccsds122_cli_rc": rc,
                   "tile_complexity_wrapper_doctor_rc": rc_new,
                   "streamed": streamed, "make_baseline_b_rc": rc_b,
                   "caseA_device_kept": [r["lossless"] for r in resK["rows"]],
@@ -146,6 +161,9 @@ def test_port_runs_without_loading_jax(tmp_path, jax_state):
                    "ccsds122_cli_rc": 0,
                    "streamed": {"ccsds123": [1, [32]], "ccsds121": [1, [32]]},
                    "make_baseline_b_rc": 0,
+                   "mesh": {"j2k": [0, 0, 0, 0], "ccsds121": [1, 1],
+                            "ccsds122": [0, 0, 1, 1], "stream": [1, [32]],
+                            "module": True},
                    "tile_complexity_wrapper_doctor_rc": [0, 0, 0],
                    "others": {"ccsds123": [[1, 0]], "ccsds123_standard": [[1, 0]],
                               "jpegls": [[1, 0]], "jpegls_near": [[0, 2]],

@@ -170,11 +170,13 @@ def test_port_lossless_sweep_equals_tpukit(tmp_path, casea_tiles):
                                        ({"tilex": 64}, "sweep"),
                                        ({"tiley": 32}, "run")])
 def test_what_is_not_ported_raises(rng, opts, spec):
-    """The mesh sweep raises, naming its ROADMAP item. Device-mode streams
-    (``keep_bitstream`` with ``entropy="device"``, whole cubes and tiles),
-    refused until the host coder was re-homed, are built: one per (tile,
-    band), as long together as the point's byte count, which is the
-    model-first run's, as is the recon."""
+    """What was once refused runs. Device-mode streams (``keep_bitstream``
+    with ``entropy="device"``, whole cubes and tiles) are built: one per
+    (tile, band), as long together as the point's byte count, which is the
+    model-first run's, as is the recon. The mesh sweep equals the
+    single-device sweep: through ``sweep_rates`` (tiles ignore the mesh, as
+    in tpukit) and through ``sweep_qualities`` with the mesh passed
+    positionally, tpukit's parameter order."""
     from tpukit_torch.codecs.base import RateSpec
 
     cube = rng.integers(0, 4096, (4, 96, 160)).astype(np.uint16)
@@ -192,9 +194,19 @@ def test_what_is_not_ported_raises(rng, opts, spec):
         == model.bitstream_bytes
     assert model.bitstreams is None
     assert torch.equal(kept.recon, model.recon)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        J2KCodec(**opts).sweep_rates(cube, "uint16", [rate], mesh=object(),
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        codec.sweep_qualities(cube, "uint16", [40], False, None, None,
-                              object(), device="cpu")
+    from tpukit_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cpu"] * 4, dp=2, sp=2)
+    for c in (J2KCodec(**opts), codec):
+        (single,) = c.sweep_rates(cube, "uint16", [rate], device="cpu")
+        (meshed,) = c.sweep_rates(cube, "uint16", [rate], mesh=mesh,
+                                  device="cpu")
+        assert meshed.bitstream_bytes == single.bitstream_bytes
+        assert np.array_equal(np.asarray(meshed.recon),
+                              np.asarray(single.recon))
+    (single,) = codec.sweep_qualities(cube, "uint16", [40], False, None,
+                                      None, None, device="cpu")
+    (meshed,) = codec.sweep_qualities(cube, "uint16", [40], False, None,
+                                      None, mesh, device="cpu")
+    assert meshed.bitstream_bytes == single.bitstream_bytes
+    assert torch.equal(meshed.recon, single.recon)

@@ -117,7 +117,8 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
                 (tmp_path / "jax" / rel).read_bytes(), rel
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2"],
+@pytest.mark.parametrize("extra", [["--mesh", "2", "--codec", "ccsds121",
+                                    "--tile", "32"],
                                    ["--stream-rows", "32", "--codec",
                                     "ccsds121", "--tile", "32"],
                                    ["--profile", "{tmp}/prof", "--codec",
@@ -131,24 +132,17 @@ def test_port_sweep_equals_tpukit(tmp_path, caseb_tiles, monkeypatch):
                                     "--keep-bitstream"],
                                    ["--codec", "ccsds122"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, caseb_tiles, extra):
-    """``--mesh``, which the port does not have yet, raises naming its
-    ROADMAP item before any input is read. What has been ported since
-    (scene streaming in row strips, ``--profile``, ``--compressor-cmd``
-    with the arguments after ``--`` passed through to the wrapper, the
-    device mode's kept streams, CCSDS-122) runs the sweep and returns 0,
-    as tpukit's ``run_codec_main`` does, with tpukit's bytes: the
-    ``--compressor-cmd`` runs drive the port's ``codec-ccsds121`` wrapper
-    in a child process, held against tpukit's codec run in this process
-    with the wrapper's options."""
+    """What the port once refused runs the sweep and returns 0, as
+    tpukit's ``run_codec_main`` does, with tpukit's bytes: ``--mesh 2``
+    (two positions, tpukit's two virtual devices), scene streaming in row
+    strips, ``--profile``, ``--compressor-cmd`` with the arguments after
+    ``--`` passed through to the wrapper, the device mode's kept streams,
+    CCSDS-122. The ``--compressor-cmd`` runs drive the port's
+    ``codec-ccsds121`` wrapper in a child process, held against tpukit's
+    codec run in this process with the wrapper's options."""
     from tpukit.cli.main import run_codec_main as jax_run_codec
     from tpukit_torch.cli.main import main, run_codec_main
 
-    argv = ["--indices", str(tmp_path / "absent.json"), "--codec",
-            "ccsds121", "--outdir", str(tmp_path), "--device", "cpu"]
-    if extra[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_codec_main(argv + extra)
-        return
     wrap = tmp_path / "wrap.py"
     wrap.write_text(
         "import sys\n"

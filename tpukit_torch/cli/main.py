@@ -32,8 +32,10 @@ bpe|embedded``), ccsds123 (both predictors), jpegls, png and j2k
 themselves with a strip-exact codec); ``--compressor-cmd`` drives an
 external wrapper through the reference's L2 contract (``codecs.shell``),
 the arguments after ``--`` passed through to it; ``--profile DIR`` writes
-a ``torch.profiler`` Chrome trace of the sweep to ``DIR/trace.json``.
-``--mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
+a ``torch.profiler`` Chrome trace of the sweep to ``DIR/trace.json``;
+``--mesh DP[,SP]`` runs the codecs' mesh ladders and the metric pass on a
+mesh of DP·SP positions, wrapped round-robin onto the cards of
+``--device`` (``sweep.runner._build_mesh``).
 
 ``run_codec_main`` returns 0 as tpukit's does; ``run_codec_config`` gives
 the ``SweepConfig`` of a command line for callers that want ``run_sweep``'s
@@ -114,17 +116,15 @@ def _run_codec_args(argv=None):
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler Chrome trace of the sweep "
                          "to DIR/trace.json (Perfetto reads it)")
-    ap.add_argument("--mesh", metavar="DP[,SP]", default=None)
+    ap.add_argument("--mesh", metavar="DP[,SP]", default=None,
+                    help="run on a mesh of DP*SP positions: DP-way over "
+                         "lanes and budgets, SP-way over bands; positions "
+                         "wrap round-robin onto the cards of --device")
     ap.add_argument("--stream-rows", type=int, default=None)
     ap.add_argument("--dedupe-reps", action="store_true",
                     help="reps of an identical (tile, rate) point share one "
                          "metric lane (default: honest reps)")
     args, _extra = ap.parse_known_args(argv)
-
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported to tpukit_torch yet "
-            "(ROADMAP.md 'Modules to port': item 21 (multi-GPU))")
 
     from tpukit_torch.codecs.registry import create
     from tpukit_torch.io import manifest
@@ -169,7 +169,8 @@ def _run_codec_args(argv=None):
         ql_err_zoom=args.ql_err_zoom, case=args.case, asset=args.asset,
         link_mbps=link_mbps, link_eff=link_eff, csv_decimal=args.csv_decimal,
         single_csv=(Path(args.single_csv) if args.single_csv else None),
-        stream_rows=args.stream_rows, dedupe_reps=args.dedupe_reps)
+        stream_rows=args.stream_rows, dedupe_reps=args.dedupe_reps,
+        mesh=args.mesh)
 
 
 def run_codec_config(argv=None):

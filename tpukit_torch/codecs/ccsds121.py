@@ -38,6 +38,8 @@ Where the port differs from the JAX code, and why:
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -563,9 +565,9 @@ def chunk_stats(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     return a["total_bits"], a["k_lo_out"], a["k_hi_out"]
 
 
-def encode_plan(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
-                chunk: int = 1 << 22,
-                preprocess: bool = True) -> Optional[dict]:
+def encode_plan(x, bits: int = 16, J: int = 8, rsi: int = 2,
+                chunk: int = 1 << 22, preprocess: bool = True,
+                devices=None) -> Optional[dict]:
     """Device-computed parallel-encode plan (tpukit/codecs/ccsds121.py:566-655).
 
     Splits the stream into chunks that end on reference-sample intervals,
@@ -574,7 +576,14 @@ def encode_plan(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
     chain in Python ints. Returns tpukit's plan dict (``n``, ``sizes``,
     ``k_in``, ``bit_off``, ``seg_bits``, ``total_bits``, ``bits``, ``J``,
     ``rsi``, ``preprocess``), or None when the stream is too small or
-    misaligned to chunk (callers then take the monolithic coder)."""
+    misaligned to chunk (callers then take the monolithic coder).
+
+    ``devices``: positions of a device mesh (parallel/mesh.py) to spread
+    the chunks over, round-robin. ``x`` is then the host stream (numpy);
+    each chunk is uploaded by its position and modelled on its stream, and
+    its three scalars are fetched from there once every chunk is enqueued.
+    The model is integer and the k chain folds on the host, so the plan
+    equals the single-device plan for any layout."""
     n = int(x.shape[0])
     chunk -= chunk % (J * rsi)       # chunks must end on an RSI boundary
     if chunk <= 0 or n <= chunk or n % (J * rsi) != 0 or n % J != 0:
@@ -584,12 +593,20 @@ def encode_plan(x: torch.Tensor, bits: int = 16, J: int = 8, rsi: int = 2,
         sizes.append(n % chunk)
     stats = []
     start = 0
-    for sz in sizes:
-        stats.append(torch.stack([v.to(torch.int64) for v in chunk_stats(
-            x[start:start + sz], bits=bits, J=J, rsi=rsi,
-            preprocess=preprocess)]))
+    for i, sz in enumerate(sizes):
+        pos = devices[i % len(devices)] if devices is not None else None
+        xs = x[start:start + sz]
+        with (pos.run() if pos is not None else contextlib.nullcontext()):
+            if pos is not None:
+                xs = pos.put(xs).to(torch.int32)
+            stats.append(torch.stack([v.to(torch.int64) for v in chunk_stats(
+                xs, bits=bits, J=J, rsi=rsi, preprocess=preprocess)]))
         start += sz
-    table = torch.stack(stats).cpu().tolist()
+    if devices is None:
+        table = torch.stack(stats).cpu().tolist()
+    else:
+        table = [devices[i % len(devices)].fetch(t).tolist()
+                 for i, t in enumerate(stats)]
     k = 0
     off = 0
     k_in, bit_off, seg_bits = [], [], []

@@ -34,8 +34,10 @@ float32 step (the embedded ladder's division by the power-of-two weight)
 is written as tpukit writes it and rounds nothing below 2^24. Bands go through the layouts in groups sized from the device's
 free memory (a 1024² band's BPE layout is about 230 MB); budgets one at a
 time, as tpukit's ``lax.map`` does. ``CodecResult.recon`` is a tensor on
-the sweep's device. The mesh sweep (tpukit ``_sweep_bpe_mesh``) is not
-ported and raises.
+the sweep's device. With a device mesh (``mesh=``, parallel/mesh.py) the
+BPE ladder splits its budgets over dp and its bands over sp
+(:meth:`CCSDS122Codec._sweep_bpe_mesh`); the embedded backend ignores the
+mesh, as tpukit's does.
 """
 
 from __future__ import annotations
@@ -68,8 +70,6 @@ LEVELS = 3
 _WEIGHTS = {"LL3": 16, "HL3": 8, "LH3": 8, "HH3": 4,
             "HL2": 4, "LH2": 4, "HH2": 2,
             "HL1": 2, "LH1": 2, "HH1": 1}
-
-_NOT_PORTED_MESH = "ROADMAP.md 'Modules to port', item 21 (multi-GPU)"
 
 # bytes of device memory the embedded layout and one budget's decode take
 # per coefficient (int64 magnitudes, MSBs, ranks and unit ends, the sort's
@@ -117,7 +117,7 @@ def band_group(B: int, bytes_per_band: int, device: torch.device) -> int:
 
 
 def _analyze_ladder_device(work, order, budgets, wmap, weighted: bool,
-                           shift: int = 0):
+                           shift: int = 0, share: int = 1):
     """(B,Hp,Wp) int32 + a list of byte budgets -> ((Q,B,n) recon coefs,
     (Q,B) bytes, (B,n) scan-ordered coefficients as coded).
 
@@ -128,7 +128,8 @@ def _analyze_ladder_device(work, order, budgets, wmap, weighted: bool,
 
     ``weighted``: scale by the subband weight map before coding and divide
     it back out (with rounding: midpoint fills need not stay multiples)
-    after the truncated decode."""
+    after the truncated decode. ``share``: the mesh positions working on
+    the card at once, among which its free memory is divided."""
     B = work.shape[0]
     if shift:
         # effective-lossless on bit-packed data: code (x >> k) of the k
@@ -139,7 +140,7 @@ def _analyze_ladder_device(work, order, budgets, wmap, weighted: bool,
         coefs = coefs * wmap[None]
     perm = coefs.reshape(B, -1)[:, order]
     n = perm.shape[1]
-    group = band_group(B, n * _EMBEDDED_BYTES_PER_COEF, work.device)
+    group = band_group(B, n * _EMBEDDED_BYTES_PER_COEF * share, work.device)
     rec = torch.empty((len(budgets), B, n), dtype=torch.int32,
                       device=work.device)
     nbytes = torch.empty((len(budgets), B), dtype=torch.int64,
@@ -183,7 +184,7 @@ def _bpe_blocks_device(work, gather, wexp):
     return (coefs << wexp[None]).reshape(B, -1)[:, gather]
 
 
-def _bpe_ladder_device(work, gather, wexp, budgets):
+def _bpe_ladder_device(work, gather, wexp, budgets, share: int = 1):
     """(B,Hp,Wp) int32 pixels + a list of byte budgets -> ((Q,B,Sp,64)
     int32 reconstructed WEIGHTED blocks, (Q,B) exact stream bytes, the
     (B,S,64) blocks) for the BPE backend.
@@ -191,11 +192,14 @@ def _bpe_ladder_device(work, gather, wexp, budgets):
     The budget-independent stream layout (gaggle DC/depth sections,
     per-coefficient acquisition ends, stage-4 positions) is computed once
     per band and shared across the ladder; each budget pays only the cut
-    comparisons (``bpe122_model.bpe_decode_at``), one budget at a time."""
+    comparisons (``bpe122_model.bpe_decode_at``), one budget at a time.
+    ``share``: the mesh positions working on the card at once, among which
+    its free memory is divided."""
     blocks = _bpe_blocks_device(work, gather, wexp)
     B, S = blocks.shape[:2]
     Sp = S + (-S) % bpm.GAGGLE
-    group = band_group(B, Sp * bpm.LAYOUT_BYTES_PER_BLOCK, work.device)
+    group = band_group(B, Sp * bpm.LAYOUT_BYTES_PER_BLOCK * share,
+                       work.device)
     rec = torch.empty((len(budgets), B, Sp, 64), dtype=torch.int32,
                       device=work.device)
     nbytes = torch.empty((len(budgets), B), dtype=torch.int64,
@@ -289,6 +293,16 @@ class CCSDS122Codec(Codec):
             by_budget.setdefault(budget, []).append(i)
         budgets = list(by_budget)
 
+        mesh = opts.get("mesh")
+        if mesh is not None:
+            # budgets over dp, bands over sp; integer end to end, so the
+            # mesh ladder equals the single-device ladder bit for bit
+            gather, scatter = bpe122.block_indices(Hp, Wp)
+            return self._sweep_bpe_mesh(
+                mesh, cube, points, by_budget, budgets, gather, scatter,
+                bpe122.weight_exp_map(Hp, Wp), Hp, Wp, H, W, info,
+                keep_bitstream=keep_bitstream, dtype_name=dtype_name)
+
         dev = work_device(opts)
         c = _consts(Hp, Wp, dev)
         work = device_work(cube, opts, mult, torch.int32)
@@ -344,15 +358,96 @@ class CCSDS122Codec(Codec):
                             "entropy": "bpe"})
         return out
 
+    def _sweep_bpe_mesh(self, mesh, cube, points, by_budget, budgets,
+                        gather, scatter, wexp, Hp, Wp, H, W, info,
+                        keep_bitstream: bool = False,
+                        dtype_name: str = "uint16") -> list:
+        """The BPE budget ladder on a device mesh (port of tpukit
+        ccsds122_codec.py:330-425): distinct budgets over dp, bands over sp
+        (``parallel.mesh.sharded_bpe122_budget_ladder``; a band count that
+        sp does not divide puts every position on dp). With
+        ``keep_bitstream`` the host BPE builds the real segments of every
+        budget from one weighted-block analysis on the mesh's first
+        position, and their lengths are held to the model's."""
+        from tpukit_torch.codecs.j2k_codec import (_MESH_LADDERS,
+                                                   mesh_for_bands)
+        from tpukit_torch.parallel.mesh import (pad_to_dp,
+                                                sharded_bpe122_budget_ladder)
+
+        B = cube.shape[0]
+        m = mesh_for_bands(mesh, B)
+        key = ("bpe122", m, LEVELS, H, W, Hp, Wp, int(info.min),
+               int(info.max), cube.dtype.name)
+        step = _MESH_LADDERS.get(key)
+        if step is None:
+            step = _MESH_LADDERS[key] = sharded_bpe122_budget_ladder(
+                m, LEVELS, H, W, int(info.min), int(info.max),
+                cube.dtype.name)
+
+        t0 = time.perf_counter()
+        with mem_phase("comp"):
+            work = np.pad(cube.astype(np.int32),
+                          ((0, 0), (0, Hp - H), (0, Wp - W)), mode="edge")
+            budgets_p, _ = pad_to_dp(m, np.asarray(budgets, np.int32))
+            rec_all, nbytes_all = step(work, gather, wexp, budgets_p,
+                                       scatter)
+            nbytes_all = nbytes_all.cpu().numpy()
+        t_ladder = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            _wait(_mark(rec_all.device))
+        t_dec = time.perf_counter() - t0
+
+        blocks_host = None
+        signed = 1 if dtype_name.startswith("int") else 0
+        if keep_bitstream:
+            # integer program: the same blocks on any position
+            first = m.home
+            w = first.put(work)
+            g = first.put(gather.astype(np.int64))
+            we = first.put(wexp)
+            with first.run():
+                blocks = _bpe_blocks_device(w, g, we)
+            blocks_host = first.fetch(blocks)
+
+        out: list = [None] * len(points)
+        for qi, (budget, ixs) in enumerate(by_budget.items()):
+            streams = None
+            t_enc = 0.0
+            if keep_bitstream:
+                t0 = time.perf_counter()
+                with mem_phase("comp"):
+                    streams = [bpe122.bpe_encode_blocks(
+                        blocks_host[b], seg_byte_limit=budget,
+                        img_width=W, pad_rows=Hp - H, pixel_bitdepth=16,
+                        signed_pixels=signed) for b in range(B)]
+                t_enc = time.perf_counter() - t0
+                if [len(s) for s in streams] != nbytes_all[qi].tolist():
+                    raise RuntimeError(
+                        "bpe122 mesh size model disagrees with the "
+                        f"native coder: {[len(s) for s in streams]} != "
+                        f"{nbytes_all[qi].tolist()}")
+            nbytes = int(nbytes_all[qi].sum())
+            for i in ixs:
+                target_bpp_band, _ = points[i]
+                out[i] = CodecResult(
+                    codec="ccsds122_ext", encoder=self.bpe_desc,
+                    bitstream_bytes=nbytes, recon=rec_all[qi],
+                    t_comp_s=(t_ladder / len(budgets) + t_enc) / len(ixs),
+                    t_dec_s=t_dec / len(budgets) / len(ixs),
+                    bitstreams={f"b{b+1:02d}.bpe": streams[b]
+                                for b in range(B)} if keep_bitstream
+                    else None,
+                    extras={"bands": int(B),
+                            "bpp_target_band": float(target_bpp_band),
+                            "entropy": "bpe"})
+        return out
+
     def sweep_rates(self, cube: np.ndarray, dtype_name: str, specs,
                     keep_bitstream: bool = False, **opts) -> list:
         """Rate ladder on the device end to end: one DWT feeds every budget
         point; reconstructions and exact stream sizes come from the
         truncated-decode model; host streams only on demand."""
-        if opts.get("mesh") is not None:
-            raise NotImplementedError(
-                f"the ccsds122 codec's mesh sweep is not ported to "
-                f"tpukit_torch yet ({_NOT_PORTED_MESH})")
         if self.entropy == "bpe":
             return self._sweep_bpe(cube, dtype_name, specs,
                                    keep_bitstream=keep_bitstream, **opts)

@@ -78,8 +78,6 @@ _PCACHE_BYTES = int(2e9)
 # (32 planes of 1024² f32 = 128 MB per array); results do not depend on it
 _TILE_BATCH = 8
 
-_NOT_PORTED_MESH = "ROADMAP.md 'Modules to port', item 21 (multi-GPU)"
-
 # the harness context a tile-by-tile run hands on to each tile
 _TILE_OPTS = ("device_plan_cache", "dedupe_reps", "device_cube", "device")
 
@@ -409,6 +407,39 @@ def fit_base(perm_coefs: torch.Tensor, perm_scale: torch.Tensor,
     return hi
 
 
+def _mesh_quality_point(coefs: torch.Tensor, c: "_PricingConsts", inv_base,
+                        base, H0: int, W0: int, lo: int, hi: int,
+                        dtype: torch.dtype):
+    """ONE quality point from a mesh position's 9/7 coefficients (port of
+    tpukit ``_mesh_quality_point``, :364-386): the requantized recon and
+    the exact per-band sizes. These are the operations of one point of the
+    single-device ladder (:func:`requant_recon_ladder`,
+    :func:`ladder_sizes`), so any number of positions gives the same
+    bits."""
+    qc = quantize(coefs, (c.inv_scale * float(inv_base))[None])
+    recon = _device_recon(qc, c.scale, base, LEVELS, H0, W0, lo, hi, dtype)
+    return recon, ladder_sizes(coefs, c.order, c.inv_scale_perm, [inv_base],
+                               c.segbounds, c.rle)[0]
+
+
+# the mesh steps and the dp-only meshes of meshes whose sp does not divide
+# a cube's band count, built once per mesh
+_MESH_LADDERS: Dict[tuple, object] = {}
+
+
+def mesh_for_bands(mesh, B: int):
+    """sp must divide the band axis; otherwise the mesh's positions (the
+    same ones, with their streams) all go on dp, as tpukit's fallback does
+    (j2k_codec.py:462-472)."""
+    if B % mesh.shape["sp"] == 0:
+        return mesh
+    key = ("dp_only", mesh)
+    if key not in _MESH_LADDERS:
+        from tpukit_torch.parallel.mesh import Mesh
+        _MESH_LADDERS[key] = Mesh([[p] for p in mesh.positions()])
+    return _MESH_LADDERS[key]
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
@@ -494,12 +525,6 @@ class J2KCodec(Codec):
             return quality_from_bpp(rate.value)
         return 35  # default (j2k_wrap.py:94)
 
-    def _refuse(self, opts) -> None:
-        if opts.get("mesh") is not None:
-            raise NotImplementedError(
-                f"the j2k codec's mesh sweep is not ported to tpukit_torch "
-                f"yet ({_NOT_PORTED_MESH})")
-
     def _tiles(self, cube: np.ndarray, opts):
         """(tx, ty) when independent tiles smaller than the cube are asked
         for, else None."""
@@ -512,7 +537,6 @@ class J2KCodec(Codec):
 
     def run(self, cube: np.ndarray, dtype_name: str, rate: RateSpec,
             keep_bitstream: bool = False, **opts) -> CodecResult:
-        self._refuse(opts)
         tiles = self._tiles(cube, opts)
         if tiles is not None:
             return self._run_tiled(cube, dtype_name, rate, *tiles,
@@ -594,7 +618,6 @@ class J2KCodec(Codec):
         :meth:`_sweep_ebcot`; device-mode quality points (and bpp/cr points
         without ``rate_fit``, mapped to a quality) share one DWT in
         :meth:`sweep_qualities`, and the rest go through :meth:`run`."""
-        self._refuse(opts)
         specs = list(specs)
         tiles = self._tiles(cube, opts)
         if tiles is not None:
@@ -666,9 +689,14 @@ class J2KCodec(Codec):
 
         ``CodecResult.recon`` is a tensor on the codec's device
         (``base.work_device``: ``device``, else ``device_cube``'s, else
-        CUDA). ``mesh`` is tpukit's device mesh, which the port does not
-        have."""
-        self._refuse({"mesh": mesh})
+        CUDA).
+
+        With a device mesh (``mesh``, parallel/mesh.py) the ladder runs on
+        its positions instead (:meth:`_sweep_qualities_mesh`), and the
+        recon of point i lies on position i mod n's device. Kept streams
+        are then built by the host coder from one single-device transform
+        on the codec's device, and each point's total length must equal
+        the mesh's size model, or the run raises."""
         B, H, W = cube.shape
         m = 1 << LEVELS
         Hp, Wp = H + (-H) % m, W + (-W) % m
@@ -683,21 +711,50 @@ class J2KCodec(Codec):
         inv_bases = np.float32(1.0) / bases
 
         ckey = ("j2k_dwt", B, Hp, Wp, cube.dtype.name)
-        if cache is not None and ckey in cache:
-            coefs, perm_coefs, t_dwt = cache[ckey]
-        else:
-            t0 = time.perf_counter()
-            coefs = dwt97(device_work(cube, opts, m, torch.float32), LEVELS)
-            _wait(_mark(dev))
-            perm_coefs = None
-            t_dwt = time.perf_counter() - t0
-        if keep_bitstream and perm_coefs is None:
-            # the host coder's input: one bulk fetch per cube
-            t0 = time.perf_counter()
-            perm_coefs = _to_host(_perm(coefs, c.order))
-            t_dwt += time.perf_counter() - t0
-        if cache is not None:
-            cache[ckey] = (coefs, perm_coefs, t_dwt)
+
+        def coefs_cached(need_perm: bool):
+            """(coefs, scan-ordered host coefficients or None, DWT wall)
+            through the harness cache, across reps."""
+            if cache is not None and ckey in cache:
+                coefs, perm_coefs, t_dwt = cache[ckey]
+            else:
+                t0 = time.perf_counter()
+                coefs = dwt97(device_work(cube, opts, m, torch.float32),
+                              LEVELS)
+                _wait(_mark(dev))
+                perm_coefs = None
+                t_dwt = time.perf_counter() - t0
+            if need_perm and perm_coefs is None:
+                # the host coder's input: one bulk fetch per cube
+                t0 = time.perf_counter()
+                perm_coefs = _to_host(_perm(coefs, c.order))
+                t_dwt += time.perf_counter() - t0
+            if cache is not None:
+                cache[ckey] = (coefs, perm_coefs, t_dwt)
+            return coefs, perm_coefs, t_dwt
+
+        if mesh is not None:
+            res = self._sweep_qualities_mesh(mesh, cube, qualities, bases,
+                                             inv_bases, Hp, Wp)
+            if keep_bitstream:
+                _, perm_coefs, _ = coefs_cached(need_perm=True)
+                for r, inv_base in zip(res, inv_bases):
+                    t0 = time.perf_counter()
+                    with mem_phase("comp"):
+                        enc = [wc.wenc_quant_encode_ck(
+                            cf, c.inv_scale_perm_host, inv_base,
+                            segbounds=c.segbounds)[0] for cf in perm_coefs]
+                    r.t_comp_s += time.perf_counter() - t0
+                    got = sum(len(e) for e in enc)
+                    if got != r.bitstream_bytes:
+                        raise RuntimeError(
+                            "mesh size model / host coder mismatch: "
+                            f"{got} != {r.bitstream_bytes}")
+                    r.bitstreams = {f"b{b+1:02d}.j2c": e
+                                    for b, e in enumerate(enc)}
+            return res
+
+        coefs, perm_coefs, t_dwt = coefs_cached(keep_bitstream)
         # the recon ladder goes first: the device works on it while the
         # host enqueues the sizes (and codes, with kept streams)
         recons, s1d, s2d = requant_recon_ladder(
@@ -721,6 +778,56 @@ class J2KCodec(Codec):
             codec="j2k_gdal", encoder=self.encoder_desc,
             bitstream_bytes=int(sizes[i].sum()), recon=recons[i],
             t_comp_s=t_dwt + t_sizes / Q, t_dec_s=t_rec / Q,
+            bitstreams=None, extras={"quality_used": q})
+            for i, q in enumerate(qualities)]
+
+    def _sweep_qualities_mesh(self, mesh, cube, qualities, bases, inv_bases,
+                              Hp: int, Wp: int) -> list:
+        """The quality ladder on the mesh's positions (port of tpukit
+        j2k_codec.py:1477-1533): point i runs on position i mod n, each
+        position computes its own 9/7 DWT (kernel K2 on CUDA) of its own
+        upload of the cube once, and every point is the same single-point
+        program (:func:`_mesh_quality_point`, kernel K1 in its size model)
+        on its position's stream. The results are the single-device
+        ladder's bit for bit, for any number of positions. ``t_comp_s`` is
+        an equal share of the wall up to the sizes' read-back, ``t_dec_s``
+        of the wait for the recons."""
+        positions = mesh.positions()
+        B, H0, W0 = cube.shape
+        info = np.iinfo(cube.dtype)
+        dtype = _torch_dtype(cube.dtype)
+        m = 1 << LEVELS
+        # the constants are made on the caller's stream, before any
+        # position starts (a position waits for that stream)
+        consts = {p.device: self._shape_consts(Hp, Wp, p.device)
+                  for p in positions[:len(qualities)]}
+        t0 = time.perf_counter()
+        with mem_phase("comp"):
+            coefs_by_pos: Dict[object, torch.Tensor] = {}
+            points = []
+            for i, (base, inv_base) in enumerate(zip(bases, inv_bases)):
+                pos = positions[i % len(positions)]
+                with pos.run():
+                    if pos not in coefs_by_pos:
+                        coefs_by_pos[pos] = dwt97(device_work(
+                            cube, {"device": pos.device}, m, torch.float32),
+                            LEVELS)
+                    points.append((pos,) + _mesh_quality_point(
+                        coefs_by_pos[pos], consts[pos.device], inv_base,
+                        base, H0, W0, int(info.min), int(info.max), dtype))
+            sizes = [pos.fetch(s) for pos, _, s in points]
+        t_comp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with mem_phase("dec"):
+            recons = [pos.handoff(r) for pos, r, _ in points]
+            for pos in coefs_by_pos:
+                pos.synchronize()
+        t_rec = time.perf_counter() - t0
+        Q = max(len(qualities), 1)
+        return [CodecResult(
+            codec="j2k_gdal", encoder=self.encoder_desc,
+            bitstream_bytes=int(sizes[i].sum()), recon=recons[i],
+            t_comp_s=t_comp / Q, t_dec_s=t_rec / Q,
             bitstreams=None, extras={"quality_used": q})
             for i, q in enumerate(qualities)]
 
@@ -1245,7 +1352,15 @@ class J2KCodec(Codec):
         ``dedupe_reps``; honest reps (the default) re-run every point's
         truncation and synthesis, so their timings are per-rep.
         ``t_comp_s`` is the analysis wall, plus the residual wait for the
-        priced sizes after it (``t_extra``), plus the point's truncation."""
+        priced sizes after it (``t_extra``), plus the point's truncation.
+
+        A device mesh (``opts["mesh"]``) is ignored here by design, not as
+        a fallback (tpukit :1167-1175): the codec work is host C++ (tier-1
+        analysis, PCRD truncation, synthesis) plus one pricing ladder, which
+        runs on one fixed device, the codec's, so that the byte targets do
+        not depend on the mesh's layout (tpukit :1229-1237) and a ``--mesh``
+        CSV equals the single-device one; the runner spreads the metric
+        pass over the mesh."""
         B, H, W = cube.shape
         info = np.iinfo(cube.dtype)
         depth, signed = info.bits, info.min < 0

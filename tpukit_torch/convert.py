@@ -17,13 +17,16 @@ CCSDS-123 band weights:
     ``k_in`` (only the parallel host encoder reads it), in both packages;
   * the J2K quality ladder's priced targets are ``{spec index: bytes}`` in
     both packages, which both truncate to with ``io.j2c_enc.at_size_multi``;
+  * a device mesh: ``from_tpukit_mesh`` gives the port's ``Mesh`` with a
+    tpukit mesh's ("dp", "sp") shape, its positions on the caller's device
+    type;
   * the CCSDS-123 ``ls`` predictor's fitted weights are a (bands, 4) int16
     numpy array of 4.12 fixed-point values in both packages (tpukit's
     ``encode_model`` returns them as a device array: ``np.asarray`` it),
     and they travel in the stream header, so either package decodes the
     other's stream.
 
-Reads the tpukit codec's attributes only, so this module imports nothing
+Reads the tpukit objects' attributes only, so this module imports nothing
 of tpukit's JAX code.
 """
 
@@ -68,3 +71,14 @@ def from_tpukit_codec(codec):
         raise NotImplementedError(
             f"the port has {names()}; got codec {name or codec!r}")
     return create(name, **{k: getattr(codec, k) for k in _ARGS[name]})
+
+
+def from_tpukit_mesh(mesh, device="cuda"):
+    """The port's ``parallel.mesh.Mesh`` with a tpukit mesh's dp and sp, its
+    positions on the cards of ``device``'s type, wrapped round-robin
+    (``sweep.runner._build_mesh``), or all on the CPU."""
+    from tpukit_torch.device import resolve_device
+    from tpukit_torch.sweep.runner import _build_mesh
+
+    return _build_mesh(f"{int(mesh.shape['dp'])},{int(mesh.shape['sp'])}",
+                       resolve_device(device))

@@ -359,6 +359,24 @@ tail_kernel(const float* __restrict__ src, long long src_band,
   }
 }
 
+// Makes `device` current for the entry point's scope and restores the
+// device the calling thread had on every return, errors included: a launch
+// on another card must not move the caller's current device.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t set(int device) {
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+      return err;
+    }
+    return prev == device ? cudaSuccess : cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -371,7 +389,8 @@ int tpk_dwt97_tile(const void* src, long long src_band, long long src_row,
                    int B, int h, int w, void* out, long long out_band,
                    long long out_row, void* ll, long long ll_band,
                    long long ll_row, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || B > 65535 || h < 2 || w < 2 || (h | w) & 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -390,7 +409,8 @@ int tpk_dwt97_tail(const void* src, long long src_band, long long src_row,
                    int B, int h, int w, int levels, void* out,
                    long long out_band, long long out_row, int device,
                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || B > 65535 || levels < 1 || h * w > kTailMax ||
       h % (2 << (levels - 1)) || w % (2 << (levels - 1)))

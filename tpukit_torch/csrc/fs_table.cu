@@ -147,6 +147,24 @@ cudaError_t launch(const int32_t* coded, int32_t* out, long long nb, int J,
   return cudaGetLastError();
 }
 
+// Makes `device` current for the entry point's scope and restores the
+// device the calling thread had on every return, errors included: a launch
+// on another card must not move the caller's current device.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t set(int device) {
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+      return err;
+    }
+    return prev == device ? cudaSuccess : cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -156,7 +174,8 @@ extern "C" {
 // cudaGetLastError() after the launch: 0 when the launch was accepted.
 int tpk_fs_table(const void* coded, void* out, long long nb, int J,
                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (J < 1 || J > kMaxJ || (reinterpret_cast<uintptr_t>(out) & 15u))
     return static_cast<int>(cudaErrorInvalidValue);

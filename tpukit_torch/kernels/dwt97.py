@@ -8,8 +8,9 @@ version.
 returns the packed Mallat layout of ``kernels.dwt.dwt2(x, "97", levels)``.
 
   * A CUDA tensor launches the hand-written Hopper kernels
-    (tpukit_torch/csrc/dwt97.cu) on the current stream, as :func:`plan`
-    schedules them, or raises. The result is bit-equal to the plain version
+    (tpukit_torch/csrc/dwt97.cu) on its device's current stream, as
+    :func:`plan` schedules them, or raises; the caller's current device is
+    left as it was. The result is bit-equal to the plain version
     on the card: both follow the rounding contract of ``kernels.dwt``. The
     input is only read.
   * A CPU tensor takes the plain version ``dwt97_ref``.
@@ -122,19 +123,20 @@ def dwt97(x: torch.Tensor, levels: int,
         x and out are (B, H, W), a scratch buffer holds (B, h, w)."""
         return (H * W, W) if name in ("x", "out") else (h * w, w)
 
-    for s in steps:
-        src = bufs[s.src]
-        if s.kind == "tile":
-            ll = bufs[s.ll]
-            err = lib.tpk_dwt97_tile(
-                src.data_ptr(), *strides(s.src, s.h, s.w), B, s.h, s.w,
-                out.data_ptr(), H * W, W,
-                ll.data_ptr(), *strides(s.ll, s.h // 2, s.w // 2), dev, stream)
-        else:
-            err = lib.tpk_dwt97_tail(
-                src.data_ptr(), *strides(s.src, s.h, s.w), B, s.h, s.w,
-                s.levels, out.data_ptr(), H * W, W, dev, stream)
-        _check(lib, err, s)
+    with torch.cuda.device(x.device):
+        for s in steps:
+            src = bufs[s.src]
+            if s.kind == "tile":
+                ll = bufs[s.ll]
+                err = lib.tpk_dwt97_tile(
+                    src.data_ptr(), *strides(s.src, s.h, s.w), B, s.h, s.w,
+                    out.data_ptr(), H * W, W, ll.data_ptr(),
+                    *strides(s.ll, s.h // 2, s.w // 2), dev, stream)
+            else:
+                err = lib.tpk_dwt97_tail(
+                    src.data_ptr(), *strides(s.src, s.h, s.w), B, s.h, s.w,
+                    s.levels, out.data_ptr(), H * W, W, dev, stream)
+            _check(lib, err, s)
     return out
 
 

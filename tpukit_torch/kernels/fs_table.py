@@ -7,7 +7,8 @@ int32 table of mapped residuals it returns the (nb, KMAX+1) int32 table
 ``fs[b, k] = Σ_j (coded[b, j] >> k)``.
 
   * A CUDA tensor launches the hand-written Hopper kernel
-    (tpukit_torch/csrc/fs_table.cu) on the current stream, or raises. It
+    (tpukit_torch/csrc/fs_table.cu) on its device's current stream, or
+    raises; the caller's current device is left as it was. It
     sums from bit-plane counts; ``fs_table_planes`` is that arithmetic in
     torch, held equal to the plain version by the CPU tests.
   * A CPU tensor takes the plain version ``fs_table_ref``, the port of
@@ -89,9 +90,10 @@ def fs_table(coded: torch.Tensor) -> torch.Tensor:
     from tpukit_torch.kernels import build
 
     lib = build.load()
-    err = lib.tpk_fs_table(coded.data_ptr(), out.data_ptr(), nb, J,
-                           coded.get_device(),
-                           torch.cuda.current_stream(coded.device).cuda_stream)
+    with torch.cuda.device(coded.device):
+        err = lib.tpk_fs_table(
+            coded.data_ptr(), out.data_ptr(), nb, J, coded.get_device(),
+            torch.cuda.current_stream(coded.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fs_table kernel launch failed: CUDA error {err} "
                            f"({lib.tpk_error_string(err).decode()})")

@@ -41,12 +41,18 @@ stretch comes from exact per-channel histograms built during the pass
 deviation from np.percentile's float32 path), and RGB8 renders in a second
 windowed pass over just the 3 RGB bands.
 
-Not ported: tpukit's mesh mode (lanes round-robin over mesh devices); the
-port's CLI refuses ``--mesh`` (ROADMAP item 21).
+With a device mesh (``--mesh``; tpukit streaming.py:374-385, :432-437)
+the metric lanes go round-robin to the mesh's positions, each lane to one
+position for all its strips, and every position that holds a lane gets its
+own copy of each strip; a lane's programs are the same as without a mesh,
+so the rows and artifacts are too. The codec's strip work stays as it is
+without a mesh (one upload, a fresh plan cache per strip): like tpukit
+(:531-538), the mesh is not handed to the codec.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -399,15 +405,19 @@ class _StreamQuicklooks:
 def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
                          rk: Optional[str], is_caseb: bool, link,
                          rows_blk: int, case_name=None, asset_name=None,
-                         device=None) -> List[dict]:
+                         device=None, mesh=None) -> List[dict]:
     """Run one index item through the strip-streaming path on ``device``
-    (``cfg.device`` when None); returns the CSV rows (same schema as the
-    batched path, reference run_codec.py:568-585)."""
-    from tpukit_torch.sweep.runner import (_pick_rgb_order, build_csv_row,
-                                           hbm_peak_bytes, rate_slug,
-                                           resume_recon)
+    (``cfg.device`` when None), its metric lanes on ``mesh``'s positions
+    when one is given (built from ``cfg.mesh`` when None); returns the CSV
+    rows (same schema as the batched path, reference
+    run_codec.py:568-585)."""
+    from tpukit_torch.sweep.runner import (_build_mesh, _pick_rgb_order,
+                                           build_csv_row, hbm_peak_bytes,
+                                           rate_slug, resume_recon)
 
     device = resolve_device(cfg.device if device is None else device)
+    if mesh is None and cfg.mesh:
+        mesh = _build_mesh(cfg.mesh, device)
 
     outdir = Path(cfg.outdir).resolve()
     tile_id = item["tile_id"]
@@ -466,6 +476,13 @@ def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
                 lanes[key] = {"acc": _LaneAcc(),
                               "src": (recon_path if reused else None)}
             jobs[(ri, rep)] = job
+    # the stable lane -> position map (mesh mode): every strip of a lane
+    # runs on one position
+    lane_pos: Dict[object, object] = {}
+    if mesh is not None:
+        positions = mesh.positions()
+        for i, key in enumerate(sorted(lanes)):
+            lane_pos[key] = positions[i % len(positions)]
 
     # streamed quicklooks (same artifact contract as the batched phase)
     sql = None
@@ -578,10 +595,35 @@ def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
                     if mask_ds is not None:
                         user_w = mask_ds.read(1, window=win) > 0
                         vm_base = vm_base & user_w
-                    sam_vm = user_w if user_w is not None else (src_mask_w > 0)
-                    vm_dev = torch.from_numpy(vm_base).to(device)
-                    sam_vm_dev = torch.from_numpy(
-                        np.ascontiguousarray(sam_vm)).to(device)
+                    sam_vm = np.ascontiguousarray(
+                        user_w if user_w is not None else (src_mask_w > 0))
+                    if mesh is None:
+                        vm_dev = torch.from_numpy(vm_base).to(device)
+                        sam_vm_dev = torch.from_numpy(sam_vm).to(device)
+                # one copy of the strip and its masks per position that
+                # holds a lane (mesh mode)
+                strip_on: Dict[object, tuple] = {}
+
+                def accumulate(key, rec, _block=block, _on_pos=strip_on):
+                    """One (lane, strip) contribution, on the lane's position
+                    when there is a mesh; returns the recon tensor used
+                    without one (None with one)."""
+                    pos = lane_pos.get(key)
+                    if pos is None:
+                        rec_dev = _on(rec, device)
+                        _acc_lane_strip(lanes[key]["acc"], block_dev, rec_dev,
+                                        vm_dev, sam_vm_dev, nodata,
+                                        has_nodata, is_caseb)
+                        return rec_dev
+                    if pos not in _on_pos:
+                        _on_pos[pos] = (pos.put(_block), pos.put(vm_base),
+                                        pos.put(sam_vm))
+                    blk_p, vm_p, sam_p = _on_pos[pos]
+                    rec_p = pos.put(rec)
+                    with pos.run():
+                        _acc_lane_strip(lanes[key]["acc"], blk_p, rec_p, vm_p,
+                                        sam_p, nodata, has_nodata, is_caseb)
+                    return None
 
                 for ri, res in zip(rep_ri, results):
                     sum_b[ri] += res.bitstream_bytes
@@ -610,11 +652,7 @@ def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
                         # honest reps: THIS rep's own lane accumulates;
                         # dedupe: only the rate's designated rep feeds
                         # the shared lane
-                        rec_dev = _on(recon, device)
-                        _acc_lane_strip(
-                            lanes[lane_key]["acc"], block_dev, rec_dev,
-                            vm_dev, sam_vm_dev, nodata, has_nodata,
-                            is_caseb)
+                        rec_dev = accumulate(lane_key, recon)
                     if sql is not None and metric_rep_ri[ri] == rep:
                         # quicklook CONTENT is per rate in both modes
                         sql.lane_strip(
@@ -627,23 +665,26 @@ def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
                         if lane["src"] is None:
                             continue
                         with tiff.open(lane["src"]) as rds:
-                            rec_dev = _on(rds.read(window=win), device)
-                        _acc_lane_strip(
-                            lane["acc"], block_dev, rec_dev, vm_dev,
-                            sam_vm_dev, nodata, has_nodata, is_caseb)
+                            rec_host = rds.read(window=win)
+                        rec_dev = accumulate(key, rec_host)
                         if sql is not None:
                             sql.lane_strip(key, y0, block, block_dev,
-                                           rec_dev, src_mask_w, nodata,
-                                           has_nodata)
+                                           _on(rec_host, device)
+                                           if rec_dev is None else rec_dev,
+                                           src_mask_w, nodata, has_nodata)
                 # drop the strip's buffers (source, upload, recons, the
                 # codec's plan cache) before the next strip is read, which
                 # would otherwise hold two strips at once
                 block = block_dev = results = res = recon = rec_dev = None
+                strip_on = accumulate = None
             if is_caseb:
                 # settle any lane whose accumulation ended this rep (a
                 # lane with nothing pending is a no-op)
-                for lane in lanes.values():
-                    _spectral_flush(lane["acc"], None, None)
+                for key, lane in lanes.items():
+                    pos = lane_pos.get(key)
+                    with (pos.run() if pos is not None
+                          else contextlib.nullcontext()):
+                        _spectral_flush(lane["acc"], None, None)
         for ri in rep_ri:   # every rep_ri job is fresh in this rep
             job = jobs[(ri, rep)]
             meta = dict(per_ri_meta[ri])
@@ -694,6 +735,10 @@ def sweep_item_streaming(cfg, ds: tiff.Dataset, item: dict, rates: List,
     if mask_ds is not None:
         mask_ds.close()
     data_range = rscan.result()
+    if mesh is not None:
+        # the lanes' statistics come to the host below
+        for pos in mesh.positions():
+            pos.synchronize()
 
     # assemble merged metrics per lane
     lane_met: Dict[object, dict] = {}
