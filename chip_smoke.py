@@ -885,7 +885,7 @@ def run_scene(work: Path, scene: np.ndarray, dev, card):
     # device-memory peak above the upload, and the host scan of the peak
     # sample that each device-mode entry makes first
     t0 = time.perf_counter()
-    np.abs(scene.astype(np.float64)).max()
+    j2k_codec._cube_peak(scene)
     scan_s = time.perf_counter() - t0
     dc = torch.from_numpy(scene).to(dev)
     torch.cuda.synchronize()
@@ -1642,7 +1642,7 @@ def run_j2k_kept(work: Path, tile: np.ndarray, crop: np.ndarray, dev, card):
                 for b, name in enumerate(sorted(streams)):
                     qc[b, c.order_host] = wc.wenc_decode(streams[name],
                                                          H * W, c.segbounds)
-                peak = float(np.abs(cube.astype(np.float64)).max())
+                peak = j2k_codec._cube_peak(cube)
                 base = np.float32(j2k_codec.base_step_for_quality(int(q),
                                                                   peak))
                 back = j2k_codec._device_recon(

@@ -107,6 +107,17 @@ def quality_from_bpp(bpp_band: float) -> int:
     return 28
 
 
+def _cube_peak(cube: np.ndarray) -> float:
+    """The cube's largest sample magnitude as a float, 1.0 for an all-zero
+    cube: tpukit's ``float(np.abs(cube.astype(np.float64)).max()) or 1.0``
+    without its two float64 copies of the cube. min and max are taken in
+    the cube's own dtype and widened to Python numbers before ``abs``
+    (int16's -32768 has no int16 magnitude); rounding to float64 is
+    monotone, so the float is tpukit's for every dtype."""
+    lo, hi = cube.min().item(), cube.max().item()
+    return float(max(abs(lo), abs(hi))) or 1.0
+
+
 def base_step_for_quality(q: int, data_peak: float) -> float:
     """Monotone QUALITY→quantization-step map. Calibrated so q=100 is
     near-transparent and low q reaches deep compression on 12/16-bit DN."""
@@ -577,7 +588,7 @@ class J2KCodec(Codec):
         sum_bytes = 0
         t_comp = t_dec = 0.0
         q_used = None
-        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        peak = _cube_peak(cube)
         for y0 in range(0, H, ty):
             for x0 in range(0, W, tx):
                 th, tw = min(ty, H - y0), min(tx, W - x0)
@@ -700,7 +711,7 @@ class J2KCodec(Codec):
         B, H, W = cube.shape
         m = 1 << LEVELS
         Hp, Wp = H + (-H) % m, W + (-W) % m
-        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        peak = _cube_peak(cube)
         info = np.iinfo(cube.dtype)
         opts = {"device_cube": device_cube, "device": device}
         dev = work_device(opts)
@@ -964,8 +975,7 @@ class J2KCodec(Codec):
         uploaded and run through :func:`_device_recon`."""
         B, H, W = cube.shape
         info = np.iinfo(cube.dtype)
-        peak = float(opts.get("peak_override") or 0.0) \
-            or float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        peak = float(opts.get("peak_override") or 0.0) or _cube_peak(cube)
         fit_mode = self.rate_fit and rate.key in ("bpp", "cr")
         dev = work_device(opts)
         c = self._shape_consts(Hp, Wp, dev)
@@ -1118,7 +1128,7 @@ class J2KCodec(Codec):
         B, H, W = cube.shape
         info = np.iinfo(cube.dtype)
         m = 1 << LEVELS
-        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        peak = _cube_peak(cube)
         qualities = [self.quality_for(specs[i]) for i in q_ix]
         bases = np.array([base_step_for_quality(q, peak)
                           for q in qualities], np.float32)
@@ -1194,7 +1204,7 @@ class J2KCodec(Codec):
 
     def _quality_bases(self, cube: np.ndarray, qual_specs) -> np.ndarray:
         """float32 base steps of the QUALITY specs, at the cube's peak."""
-        peak = float(np.abs(cube.astype(np.float64)).max()) or 1.0
+        peak = _cube_peak(cube)
         return np.array([base_step_for_quality(self.quality_for(s), peak)
                          for s in qual_specs], np.float32)
 
@@ -1270,8 +1280,7 @@ class J2KCodec(Codec):
             elif rate.key in ("bpp", "cr"):
                 wavelet, base = "97", 1.0
             else:
-                peak = float(peak_override or 0.0) \
-                    or float(np.abs(cube.astype(np.float64)).max()) or 1.0
+                peak = float(peak_override or 0.0) or _cube_peak(cube)
                 wavelet, base = "97", base_step_for_quality(q_used, peak)
             plankey = ("j2c_single_plans", B, H, W, cube.dtype.name,
                        _cube_token(cube), wavelet, float(base))
