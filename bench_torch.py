@@ -39,14 +39,20 @@ Each cell runs one cold sweep (iteration 0: the kernels' nvcc build, the
 native library's g++ build, CUDA's start-up and the allocator's growth),
 then its warm sweeps, each into a fresh outdir and ended by
 ``torch.cuda.synchronize()``, then one traced sweep under
-``torch.profiler`` that is not timed, then its reference pass (below). It
-prints one JSON line with the median, quartiles and sample count of each
-end-to-end metric (``sweep_wall_s``; ``anchor_flow_s`` in Case B), the
-cold sweep apart, the per-layer metrics (the runner's phases, K1/K2
-launches, device memory peak, host RSS delta of the streamed cell), the
-traced device-busy share and the rows attempted and failed. Every sweep's
-rows are checked; a failed check makes the cell exit non-zero after its
-line is printed. Without a ``--cell``, a last line keeps bench.py's keys.
+``torch.profiler`` that is not timed, in the scene J2K cell one more
+untimed sweep under the host RSS sampler, then its reference pass
+(below). It prints one JSON line with the median, quartiles and sample
+count of each end-to-end metric (``sweep_wall_s``; ``anchor_flow_s`` in
+Case B), the cold sweep apart, the per-layer metrics (the runner's
+phases, K1/K2 launches, device memory peak, the host RSS delta of the two
+scene cells: every warm sweep's in the streamed one, gated, and the RSS
+sweep's in the scene J2K one, not gated, as bench.py does), the traced
+device-busy share and the rows attempted (the timed and traced sweeps')
+and failed. Every sweep's rows are checked; a failed check makes the cell
+exit non-zero after its line is printed. Without a ``--cell``, a last
+line has bench.py's keys but the five it drops by name (``north_star_s``,
+``north_star_met``, ``warm_sum_s``, ``program_warmup_s``,
+``transfer_warmup_s``: a TPU north star and the TPU's warm-ups).
 
 Correct means equal to tpukit, the JAX system the port reproduces.
 ``bench_reference.json`` (written from the JAX package by
@@ -322,7 +328,8 @@ class Cell:
     warm: int                   # warm iterations
     rows: int                   # rows a sweep must give
     check: object               # (state, rows, outdir) -> failures
-    rss: bool = False           # sample the host RSS of every sweep
+    rss: bool = False           # sample the host RSS of every sweep, gated
+    rss_sweep: bool = False     # one more sweep, untimed, for the host RSS
 
 
 CELLS = {
@@ -333,7 +340,7 @@ CELLS = {
                                 check_casea),
     "sceneA_j2k_device_tiled1024": Cell("caseA_scene_4x2000x10000_u16_12in16",
                                         "scene", scene_j2k_argv, 20, 1,
-                                        check_scene_j2k),
+                                        check_scene_j2k, rss_sweep=True),
     "sceneA_ccsds121_stream512": Cell("caseA_scene_4x2000x10000_u16_12in16",
                                       "scene", stream_argv, 20, 1,
                                       check_stream, rss=True),
@@ -637,8 +644,9 @@ def run_cell(name: str, idx: Path, inputs: dict, work: Path,
              keep_last: bool = True, seed: int = SEED,
              reference: bool = True) -> dict:
     """One cell: its cold sweep, warm sweeps and traced sweep, every
-    sweep's rows checked, Case B's anchor flow, and (when ``reference``)
-    its reference pass. ``inputs`` were drawn from ``seed`` at ``geo``.
+    sweep's rows checked, the RSS sweep of a ``rss_sweep`` cell, Case B's
+    anchor flow, and (when ``reference``) its reference pass. ``inputs``
+    were drawn from ``seed`` at ``geo``.
     Returns the cell's record (printed as its JSON line) with, for the
     caller, ``_rows`` (the last warm sweep's rows), ``_outdir`` (its
     outdir, kept when ``keep_last``) and Case B's ``_anchor``. A failure
@@ -656,6 +664,19 @@ def run_cell(name: str, idx: Path, inputs: dict, work: Path,
     rec = {"cell": name, "config": cell.config, "metric": "sweep_wall_s",
            "unit": "s", "warm_iterations": warm}
     last = None
+
+    def check(rows, outdir) -> list:
+        """A sweep's failures: the cell's check, tpukit's full-size rows
+        (their distances kept in ``reference_full``) and the row count."""
+        bad = cell.check(state, rows, outdir)
+        if full:
+            r, more = hold_to_reference(name, rows, full["rows"])
+            rec["reference_full"] = worst(rec.get("reference_full"), r)
+            bad += [f"reference: full size: {b}" for b in more]
+        if len(rows) != cell.rows:
+            bad.append(f"{len(rows)} rows, expected {cell.rows}")
+        return bad
+
     try:
         for it in range(warm + 2):      # cold, warm..., traced
             traced = it == warm + 1
@@ -666,13 +687,7 @@ def run_cell(name: str, idx: Path, inputs: dict, work: Path,
             else:
                 s = sweep(argv, device, outdir, rss=cell.rss)
             rows = s["res"]["rows"]
-            bad = cell.check(state, rows, outdir)
-            if full:
-                r, more = hold_to_reference(name, rows, full["rows"])
-                rec["reference_full"] = worst(rec.get("reference_full"), r)
-                bad += [f"reference: full size: {b}" for b in more]
-            if len(rows) != cell.rows:
-                bad.append(f"{len(rows)} rows, expected {cell.rows}")
+            bad = check(rows, outdir)
             # the cold sweep is the streamed cell's warm-up (bench.py takes
             # its row after the canonical sweeps); the traced one samples
             # nothing
@@ -702,6 +717,19 @@ def run_cell(name: str, idx: Path, inputs: dict, work: Path,
                 last = (rows, outdir)
             else:
                 shutil.rmtree(outdir, ignore_errors=True)
+        if cell.rss_sweep:
+            # bench.py samples this row's host RSS (:466-481) and gates only
+            # the streamed row: one more sweep under the sampler, after the
+            # timed ones so its thread costs no median, its rows checked,
+            # its delta a layer metric with no gate
+            outdir = work / f"{name}_rss"
+            s = sweep(argv, device, outdir, rss=True)
+            bad = check(s["res"]["rows"], outdir)
+            shutil.rmtree(outdir, ignore_errors=True)
+            failures += [f"RSS sweep: {b}" for b in bad]
+            rss = [s["rss_mb"]]
+            log(f"[{name}] RSS sweep (untimed): {s['wall']:.3f} s, RSS "
+                f"delta {s['rss_mb']:.1f} MB")
         if cell.index == "caseA":
             failures += [f"decode: {b}" for b in
                          decode_check(last[1], inputs["caseA"])]
@@ -741,7 +769,7 @@ def run_cell(name: str, idx: Path, inputs: dict, work: Path,
         "k1_launches": k1s, "k2_launches": k2s,
         "hbm_peak_mb": stats([h for h in hbm if h is not None]),
     }
-    if cell.rss:
+    if cell.rss or cell.rss_sweep:
         rec["layers"]["rss_delta_mb"] = stats([r for r in rss
                                                if r is not None])
     rec["rows_attempted"] = attempted
@@ -809,10 +837,12 @@ def headline(recs: dict, t_dedupe, n_scene: int, dev: dict) -> dict:
         if "rss_delta_mb" in r["layers"]:
             scene[key]["rss_delta_mb"] = r["layers"]["rss_delta_mb"]["median"]
     ta, tb = a["sweep_wall_s"]["median"], b["sweep_wall_s"]["median"]
+    total = (ta + tb) if ta is not None and tb is not None else None
+    ca, cb = a.get("cold_sweep_s"), b.get("cold_sweep_s")
     anchor = b.get("_anchor")
     return {
         "metric": "canonical_sweeps_wall_s",
-        "value": (ta + tb) if ta is not None and tb is not None else None,
+        "value": total,
         "unit": "s (median of the warm sweeps: caseA j2k 14pt x2 tiles x3 "
                 "HONEST reps + caseB ccsds121 anchor x3 HONEST reps, "
                 "canonical run-codec CLI, artifacts on; bench.py sums mins)",
@@ -825,10 +855,12 @@ def headline(recs: dict, t_dedupe, n_scene: int, dev: dict) -> dict:
                              "+ its own metric lanes)",
             "summary": "median of warm iterations; iteration 0 apart",
             "t_caseA_canonical_s": ta, "t_caseB_canonical_s": tb,
+            "t_total_median_s": total,
             "iters_caseA_s": a["sweep_wall_s"]["samples"],
             "iters_caseB_s": b["sweep_wall_s"]["samples"],
-            "cold_caseA_s": a.get("cold_sweep_s"),
-            "cold_caseB_s": b.get("cold_sweep_s"),
+            "cold_caseA_s": ca, "cold_caseB_s": cb,
+            "iter0_sum_s": (ca + cb) if ca is not None and cb is not None
+            else None,
             "phase_breakdown_warm": {
                 k: {p: v["median"] for p, v in r["layers"].items()
                     if p in PHASE_KEYS}

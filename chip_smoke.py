@@ -173,7 +173,18 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      stream == the serial coder, the streamed sweeps' RSS delta under 500
      MB, the reference passes against tpukit's rows), K1 once per plan
      chunk in every Case B sweep and anchor run, none in the streamed
-     scene.
+     scene;
+ 13. the host floors and tpukit's last entry points: (a) the timed body of
+     scripts/nativebench_torch.py once at full size (the CCSDS-121 coder
+     on a 180x512x512 Case B stream, the bit-plane coder on the q35 and
+     lossless 5/3 coefficients of a 4x1024² tile) with the tile's DWTs on
+     the card: its round trips hold, and its q35 and 5/3 streams equal
+     those of the same coefficients taken on the CPU; (b)
+     ``bpc_size_bytes_host`` on the card == on the CPU == the native
+     coder's stream lengths, on both coefficient sets; (c) the named
+     transforms ``kernels.dwt.dwt53`` ... ``idwt97m`` on the tile, the card
+     against the CPU, forward and inverse bit-equal, the integer ones
+     reversible.
 
 Every phase raises on failure. Logs each phase's checks and timings to
 stderr; prints a kernels JSON line, the card line from nvidia-smi and,
@@ -185,6 +196,7 @@ bench.py's.
 import contextlib
 import csv
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -205,6 +217,7 @@ from bench_torch import (busy_ms, card_line, caseb_gains, caseb_texture,
                          rss_bytes)
 from tpukit_torch.cli.main import run_codec_config, run_codec_main
 from tpukit_torch.codecs import bpe122, bpe122_model, ccsds122_codec
+from tpukit_torch.codecs.bitplane_model import bpc_size_bytes_host
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs import wavelet_common as wc
 from tpukit_torch.codecs.ccsds121_codec import flat_stream
@@ -218,6 +231,7 @@ from tpukit_torch.device import resolve_device
 from tpukit_torch.io import manifest, tiff
 from tpukit_torch.io.jp2 import JP2Decoder
 from tpukit_torch.kernels import build
+from tpukit_torch.kernels import dwt as dwtk
 from tpukit_torch.kernels.dwt import dwt2, idwt2
 from tpukit_torch.native import ccsds121_host
 from tpukit_torch.kernels.dwt97 import TAIL_MAX, dwt97, dwt97_ref, plan
@@ -3020,6 +3034,70 @@ def run_phase12(dev, card):
     log(f"[12] phase 12 in {time.perf_counter() - t12:.1f} s")
 
 
+def load_nativebench():
+    """scripts/nativebench_torch.py as a module (scripts/ is no package)."""
+    path = Path(__file__).resolve().parent / "scripts" / "nativebench_torch.py"
+    spec = importlib.util.spec_from_file_location("nativebench_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+NAMED_DWTS = (("dwt53", "idwt53", torch.int32), ("dwt97", "idwt97", None),
+              ("dwt97m", "idwt97m", torch.int32))
+
+
+def run_phase13(dev, card):
+    """Phase 13: scripts/nativebench_torch.py's body at full size with its
+    DWTs on the card, its streams held to the CPU's coefficients;
+    ``bpc_size_bytes_host`` and tpukit's named DWTs, card against CPU."""
+    t13 = time.perf_counter()
+    nb = load_nativebench()
+    cpu = torch.device("cpu")
+    _, flat, tile = nb.draw_inputs(np.random.default_rng(nb.SEED))
+    res = nb.bench(flat, tile, dev)         # raises if a round trip fails
+    perms = {"bpc_q35": nb.q35_perm(nb.dwt_coefs(tile, "97", cpu)),
+             "bpc_lossless53": nb.lossless_perm(nb.dwt_coefs(tile, "53",
+                                                             cpu))}
+    for key, perm in perms.items():
+        want = [wc.bpc_encode(p) for p in perm]
+        if res[key]["streams"] != want:
+            raise AssertionError(f"[13] {key}: the streams of the card's "
+                                 f"coefficients != the CPU's")
+        sizes = bpc_size_bytes_host(perm)
+        if not (sizes.tolist() == bpc_size_bytes_host(perm, "cpu").tolist()
+                == [len(e) for e in want]):
+            raise AssertionError(f"[13] {key}: bpc_size_bytes_host on the "
+                                 f"card {sizes.tolist()} != the CPU's or the "
+                                 f"coder's {[len(e) for e in want]}")
+    c = res["ccsds121"]
+    log(f"[13] nativebench floors (min of N, DWT on {dev}): ccsds121 encode "
+        f"{c['encode_s']:.4f} s ({c['encode_Msamples_per_s']:.0f} Ms/s), "
+        f"decode {c['decode_s']:.4f} s ({c['decode_Msamples_per_s']:.0f} "
+        f"Ms/s), stream {c['stream_bytes']} B; bpc q35 encode "
+        f"{res['bpc_q35']['encode_s']:.4f} s, decode "
+        f"{res['bpc_q35']['decode_s']:.4f} s, "
+        f"{res['bpc_q35']['stream_bytes']} B; lossless 5/3 encode "
+        f"{res['bpc_lossless53']['encode_s']:.4f} s, decode "
+        f"{res['bpc_lossless53']['decode_s']:.4f} s, "
+        f"{res['bpc_lossless53']['stream_bytes']} B; streams == the CPU "
+        f"coefficients', bpc_size_bytes_host card == CPU == coder; {card}")
+    x = torch.from_numpy(tile)
+    for fwd, inv, dtype in NAMED_DWTS:
+        xi = x if dtype is None else x.to(dtype)
+        f, b = getattr(dwtk, fwd), getattr(dwtk, inv)
+        got, want = f(xi.to(dev)), f(xi)
+        back, back_cpu = b(got), b(want)
+        if not (torch.equal(got.cpu(), want)
+                and torch.equal(back.cpu(), back_cpu)):
+            raise AssertionError(f"[13] {fwd}/{inv}: the card != the CPU")
+        if dtype is not None and not torch.equal(back_cpu, xi):
+            raise AssertionError(f"[13] {inv}({fwd}(x)) != x")
+    log(f"[13] {', '.join(f for f, _, _ in NAMED_DWTS)} and their inverses "
+        f"on a {tuple(tile.shape)} tile: the card == the CPU, bit for bit; "
+        f"phase 13 in {time.perf_counter() - t13:.1f} s")
+
+
 def main():
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -3117,6 +3195,9 @@ def main():
 
     # phase 12: two of the benchmark's cells, with their checks
     run_phase12(dev, card)
+
+    # phase 13: the host floors (nativebench) and tpukit's last entry points
+    run_phase13(dev, card)
 
     jax_loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax."))

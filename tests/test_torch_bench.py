@@ -17,12 +17,16 @@ tpukit's output of each cell's command at ``bench_torch.REF`` for seed
 2026 (rebuilt here from the JAX package and compared with the file), and
 its full-size Case B bytes are bench.py's recorded ones; the port's
 reference passes hold on the CPU, and with K2 in bfloat16 the J2K cells'
-passes fail.
+passes fail. (f) The last line has every key of bench.py's line (read
+from its source with ``ast``) but the five it drops by name; the scene J2K
+cell carries the host RSS delta of one untimed sweep (n = 1, no gate),
+which enters no median.
 
 Run ``PYTHONPATH=. python3 tests/test_torch_bench.py`` to write the
 reference file anew from tpukit (after a change to tpukit or to the
 recipes)."""
 
+import ast
 import csv
 import importlib.util
 import json
@@ -247,6 +251,111 @@ def test_an_rss_over_the_gate_fails_the_streamed_cell(capsys, monkeypatch):
     assert rc == 1 and not rec["correct"]
     assert rec["layers"]["rss_delta_mb"]["median"] >= bt.RSS_GATE_MB
     assert any("RSS delta" in f for f in rec["failures"])
+
+
+def _bench_line_keys() -> tuple:
+    """The keys of bench.py's last JSON line and of its ``detail``
+    (bench.py:504-546), read from its source with ``ast``."""
+    for node in ast.walk(ast.parse((REPO / "bench.py").read_text())):
+        if not isinstance(node, ast.Dict):
+            continue
+        keys = {k.value: v for k, v in zip(node.keys, node.values)
+                if isinstance(k, ast.Constant)}
+        metric = keys.get("metric")
+        if isinstance(metric, ast.Constant) and \
+                metric.value == "canonical_sweeps_wall_s":
+            return (set(keys), {k.value for k in keys["detail"].keys
+                                if isinstance(k, ast.Constant)})
+    raise AssertionError("bench.py has no canonical_sweeps_wall_s line")
+
+
+def _cell_record(walls, cold=None, layers=None, **extra):
+    rec = {"sweep_wall_s": bt.stats(walls), "layers": layers or {},
+           "correct": True, "failures": [], **extra}
+    if cold is not None:
+        rec["cold_sweep_s"] = cold
+    return rec
+
+
+def test_the_last_line_has_every_key_of_bench_py_line():
+    """Every key of bench.py's line but the five the port drops by name (a
+    TPU north star and the TPU's warm-ups); iter0_sum_s and
+    t_total_median_s are bench.py's (the cold sums and the line's value);
+    the scene J2K row carries its RSS delta."""
+    top, detail = _bench_line_keys()
+    dropped = {"north_star_s", "north_star_met", "warm_sum_s",
+               "program_warmup_s", "transfer_warmup_s"}
+    assert dropped <= detail and "iter0_sum_s" in detail
+    rss = {"rss_delta_mb": bt.stats([812.5])}
+    anchor = {"n": 100, "stream": b"x" * 40, "lossless": 1}
+    recs = {
+        "caseB_anchor_ccsds121": _cell_record(
+            [2.0, 2.5], 24.0, anchor_flow_s=bt.stats([0.25]),
+            anchor_Msamples_per_s=180.0, bitstream_bytes=40, _anchor=anchor),
+        "caseA_j2k_quality14": _cell_record([20.0, 21.0, 22.0], 25.5),
+        "sceneA_j2k_device_tiled1024": _cell_record([0.7], 1.5, rss),
+        "sceneA_ccsds121_stream512": _cell_record([2.6], 2.4,
+                                                  {"rss_delta_mb":
+                                                   bt.stats([401.0])})}
+    line = bt.headline(recs, 17.0, 1000, {"platform": "cpu"})
+    assert set(line) >= top
+    assert set(line["detail"]) >= detail - dropped
+    d = line["detail"]
+    assert line["value"] == d["t_total_median_s"] == 21.0 + 2.25
+    assert d["iter0_sum_s"] == 25.5 + 24.0
+    assert d["scene"]["j2k_device_tiled1024"]["rss_delta_mb"] == 812.5
+    assert d["scene"]["ccsds121_stream512"]["rss_delta_mb"] == 401.0
+    del recs["caseA_j2k_quality14"]["cold_sweep_s"]     # a failed cold sweep
+    assert bt.headline(recs, 17.0, 1000, {})["detail"]["iter0_sum_s"] is None
+
+
+@pytest.fixture(scope="module")
+def scene_j2k_cell(tmp_path_factory):
+    """The scene J2K cell at TINY on the CPU, two warm sweeps, and the
+    directory it worked in."""
+    work = tmp_path_factory.mktemp("scene_j2k")
+    inputs = bt.draw_inputs(bt.SEED, TINY, scene=True)
+    idx = bt.write_inputs(work, inputs, {"scene"})
+    rec = bt.run_cell("sceneA_j2k_device_tiled1024", idx["scene"], inputs,
+                      work, torch.device("cpu"), TINY, warm=2,
+                      keep_last=False, reference=False)
+    return bt.public(rec), work
+
+
+def test_the_scene_j2k_cell_carries_its_rss_delta(scene_j2k_cell):
+    rec, work = scene_j2k_cell
+    assert rec["correct"], rec["failures"]
+    rss = rec["layers"]["rss_delta_mb"]
+    assert rss["n"] == 1 and rss["median"] >= 0
+    json.dumps(rec)                                     # printable as a line
+    # the RSS sweep's outdir is gone, and no sweep's is kept
+    assert not list(work.glob("sceneA_j2k_device_tiled1024_*"))
+
+
+def test_the_rss_sweep_stays_out_of_every_median(scene_j2k_cell):
+    rec, _ = scene_j2k_cell
+    assert rec["warm_iterations"] == 2
+    assert rec["sweep_wall_s"]["n"] == 2
+    assert all(v["n"] == 2 for k, v in rec["layers"].items()
+               if k in bt.PHASE_KEYS)
+    assert rec["layers"]["hbm_peak_mb"]["n"] == 0      # CPU: not measured
+    assert len(rec["layers"]["k2_launches"]) == 2
+    assert rec["rows_attempted"] == 4 * bt.CELLS[rec["cell"]].rows
+
+
+def test_an_rss_over_the_gate_does_not_fail_the_scene_j2k_cell(
+        capsys, monkeypatch):
+    class Over(bt.MemorySampler):
+        @property
+        def peak_bytes(self):
+            return bt.rss_bytes() + (600 << 20)
+
+    monkeypatch.setattr(bt, "MemorySampler", Over)
+    rc = bt.main(["--cell", "sceneA_j2k_device_tiled1024", "--device", "cpu",
+                  "--warm", "1"], geo=TINY, reference=False)
+    (rec,) = _lines(capsys)
+    assert rc == 0 and rec["correct"], rec["failures"]
+    assert rec["layers"]["rss_delta_mb"]["median"] >= bt.RSS_GATE_MB
 
 
 def test_no_card_exits_non_zero_naming_it():

@@ -146,3 +146,23 @@ def test_diff1_pair_matches_jax(rng):
         np.asarray(jdiff1_inverse(jnp.asarray(fwd.numpy().astype(np.uint16))))
         .astype(np.int32))
     np.testing.assert_array_equal(diff1_inverse(fwd).numpy(), u.astype(np.int32))
+
+
+@pytest.mark.parametrize("bits,J,rsi,n", [(16, 8, 2, None), (14, 16, 64, None),
+                                          (12, 8, 128, 1001)])
+def test_host_codec_api_equals_tpukits(rng, bits, J, rsi, n):
+    """tpukit's ``encode``/``decode`` (tpukit/codecs/ccsds121.py:673-682)
+    wrap the host coder: the same stream from the same samples (a 2-D
+    array is flattened; a partial final block is padded as libaec pads
+    it), and an exact round trip."""
+    x = _mixed_stream(rng, bits, J, rsi)[:n]
+    x2 = x[:len(x) - len(x) % 7].reshape(7, -1)
+    for samples in (x, x2):
+        got = tdev.encode(samples, bits, J, rsi)
+        assert got == jdev.encode(samples, bits, J, rsi)
+        back = tdev.decode(got, samples.size, bits, J, rsi)
+        assert back.dtype == np.uint16
+        np.testing.assert_array_equal(back, samples.ravel())
+        np.testing.assert_array_equal(
+            back, jdev.decode(got, samples.size, bits, J, rsi))
+    assert tdev.encode(x) == ck.encode(x, 16, 8, 2)     # the defaults

@@ -111,3 +111,38 @@ def test_other_kinds_and_sizes_raise():
         tdwt.dwt2(x, "haar", 3)
     with pytest.raises(ValueError, match="divisible"):
         tdwt.dwt2(torch.zeros((1, 48, 64)), "97", 5)
+
+
+@pytest.mark.parametrize("fwd,inv,kind", [("dwt53", "idwt53", "53"),
+                                          ("dwt97", "idwt97", "97"),
+                                          ("dwt97m", "idwt97m", "97m")])
+@pytest.mark.parametrize("shape", [(3, 64, 96), (64, 64)])
+def test_named_transforms_equal_tpukits(rng, fwd, inv, kind, shape):
+    """tpukit's named transforms (tpukit/kernels/dwt.py:232-254), through
+    the port's ``kernels.dwt`` (not K2's wrapper ``kernels.dwt97.dwt97``):
+    ``dwt2``/``idwt2`` of their kind at three levels, of any rank. 5/3 and
+    9/7M are exact and reversible; 9/7 is within 1e-5 * max|coef| and
+    round-trips within 1e-5 * max|x|, as tpukit's does."""
+    x = _tile(rng, (1,) * (3 - len(shape)) + shape).reshape(shape)
+    if kind != "97":
+        x = x.astype(np.int32)
+    t_fwd, t_inv = getattr(tdwt, fwd), getattr(tdwt, inv)
+    got = t_fwd(torch.from_numpy(x))
+    assert torch.equal(got, tdwt.dwt2(torch.from_numpy(x), kind, 3))
+    got = got.numpy()
+    want = np.asarray(getattr(jdwt, fwd)(jnp.asarray(x)))
+    assert got.dtype == want.dtype and got.shape == want.shape == shape
+    back = t_inv(torch.from_numpy(got)).numpy()
+    want_back = np.asarray(getattr(jdwt, inv)(jnp.asarray(got)))
+    jax_back = np.asarray(getattr(jdwt, inv)(jnp.asarray(want)))
+    if kind == "97":
+        tol = 1e-5 * np.abs(want).max()
+        assert np.abs(got - want).max() <= tol
+        assert np.abs(back - want_back).max() <= 1e-5 * np.abs(x).max()
+        assert np.abs(back - x).max() <= 1e-5 * np.abs(x).max()
+        assert np.abs(jax_back - x).max() <= 1e-5 * np.abs(x).max()
+    else:
+        assert np.array_equal(got, want)
+        assert np.array_equal(back, want_back) and np.array_equal(back, x)
+        assert np.array_equal(jax_back, x)
+    assert tdwt.dwt97 is not dwt97 and t_fwd.__module__ == tdwt.__name__

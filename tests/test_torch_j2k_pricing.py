@@ -20,6 +20,7 @@ import tpukit.codecs.j2k_codec as jj2k
 from tpukit.codecs import bitplane_model as jbpc
 from tpukit.codecs import wavelet_common as jwc
 from tpukit.codecs.base import RateSpec
+from tpukit.kernels import dwt as jdwt
 from tpukit_torch.codecs import bitplane_model as tbpc
 from tpukit_torch.codecs import j2k_codec as tj2k
 from tpukit_torch.codecs import wavelet_common as twc
@@ -57,6 +58,49 @@ def test_bpc_size_bytes_exact(rng, n, hi, masked):
     got = tbpc.bpc_size_bytes(
         torch.from_numpy(q), None if valid is None else torch.from_numpy(valid))
     assert got.numpy().tolist() == want.tolist()
+
+
+def _bitplane_model_inputs(rng, case: str):
+    """The inputs of tests/test_bitplane_model.py, case by case."""
+    if case == "fuzz":
+        return [rng.integers(-scale, scale + 1, n).astype(np.int32)
+                for n in (1, 5, 16, 17, 160, 1000, 4096)
+                for scale in (1, 7, 300, 30000)]
+    if case == "edges":
+        sparse = np.zeros(5000, np.int32)
+        sparse[rng.integers(0, 5000, 20)] = rng.integers(-9, 9, 20)
+        return [np.zeros(100, np.int32), np.array([0] * 99 + [1], np.int32),
+                np.full(64, -(2**30), np.int32), sparse]
+    if case == "batched":
+        return [rng.integers(-2000, 2000, (6, 777)).astype(np.int32)]
+    cube = rng.integers(0, 4096, (2, 64, 64)).astype(np.int32)     # "dwt"
+    coefs = np.asarray(jdwt.dwt2(jnp.asarray(cube.astype(np.float32)),
+                                 "97", 3))
+    order = jwc.scan_order(64, 64, 3)
+    return [np.trunc(coefs / step).astype(np.int32).reshape(2, -1)[:, order]
+            for step in (1.0, 8.0, 64.0)]
+
+
+@pytest.mark.parametrize("case", ["fuzz", "edges", "batched", "dwt"])
+def test_bpc_size_bytes_host_equals_tpukits(rng, case):
+    """tpukit's host wrapper (tpukit/codecs/bitplane_model.py:93) on the
+    inputs of its own tests: the same numpy array, dtype and values; each
+    equal to the native coder's stream length."""
+    for arr in _bitplane_model_inputs(rng, case):
+        want = jbpc.bpc_size_bytes_host(arr)
+        got = tbpc.bpc_size_bytes_host(arr, device="cpu")
+        assert isinstance(got, np.ndarray)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tolist() == want.tolist()
+        rows = arr.reshape(-1, arr.shape[-1])
+        assert got.reshape(-1).tolist() == [len(twc.bpc_encode(r))
+                                            for r in rows]
+
+
+def test_bpc_size_bytes_host_runs_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbpc.bpc_size_bytes_host(np.zeros(16, np.int32))
 
 
 def test_msb_index_exact():

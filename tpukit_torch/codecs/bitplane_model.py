@@ -3,8 +3,9 @@
 on torch tensors.
 
 Port of tpukit/codecs/bitplane_model.py (``_msb_index``, ``bpc_size_bits``,
-``bpc_size_bytes``, :42-90; ``bpc_stream_layout``, ``bpc_decode_at``,
-``bpc_truncated_decode``, :131-266). ``native/src/bitplane.cpp``
+``bpc_size_bytes``, ``bpc_size_bytes_host``, :42-95;
+``bpc_stream_layout``, ``bpc_decode_at``, ``bpc_truncated_decode``,
+:131-266). ``native/src/bitplane.cpp``
 streams, per plane (MSB to LSB), one gate bit per not-yet-active group of
 16, one significance bit per still-insignificant member of active groups
 plus a sign bit for members that become significant, and one refinement
@@ -50,8 +51,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpukit_torch.device import resolve_device
 
 GROUP = 16  # must match bitplane.cpp
 
@@ -102,6 +106,16 @@ def bpc_size_bytes(coefs: torch.Tensor,
                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact byte length of bpc_encode (header byte included), int64."""
     return 1 + (bpc_size_bits(coefs, valid) + 7) // 8
+
+
+def bpc_size_bytes_host(coefs: np.ndarray, device="cuda") -> np.ndarray:
+    """Host convenience wrapper: :func:`bpc_size_bytes` of a numpy array
+    on ``device`` (the card unless the caller asks for the CPU; no card
+    raises), back as an int32 numpy array, as tpukit's (which jits on its
+    default backend)."""
+    x = torch.from_numpy(np.ascontiguousarray(coefs, dtype=np.int32))
+    return bpc_size_bytes(x.to(resolve_device(device))).to(
+        torch.int32).cpu().numpy()
 
 
 _INF = 2**31 - 1       # tpukit's int32 cut sentinel, kept in int64

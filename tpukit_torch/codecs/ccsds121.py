@@ -10,8 +10,9 @@ flattened sample stream; the split-sample cost table goes through kernel K1
 the parallel-encode plan that the host C++ coder
 (``native.ccsds121_host.encode_parallel``/``decode_parallel``) consumes,
 and ``pack_words``/``encode_device`` build the bitstream itself on the
-device. The plan keeps tpukit's dict schema, so a plan from either package
-drives the same coder.
+device; ``encode``/``decode`` are tpukit's host-coder API. The plan keeps
+tpukit's dict schema, so a plan from either package drives the same
+coder.
 
 Where the port differs from the JAX code, and why:
 
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from tpukit_torch.kernels.fs_table import KMAX, fs_table
+from tpukit_torch.native import ccsds121_host
 
 ID_LEN = 4        # 8 < bits <= 16
 SEGMENT_BLOCKS = 64
@@ -630,3 +632,18 @@ def encode_size_chunked(x: torch.Tensor, bits: int = 16, J: int = 8,
     if plan is None:
         return encode_size(x, bits=bits, J=J, rsi=rsi, preprocess=preprocess)
     return (plan["total_bits"] + 7) // 8
+
+
+# ---- tpukit's codec API (tpukit/codecs/ccsds121.py:673-682): the host coder
+
+def encode(samples: np.ndarray, bits: int = 16, J: int = 8,
+           rsi: int = 2) -> bytes:
+    """The CCSDS-121 bitstream of ``samples`` from the host C++ coder
+    (bit-exact with libaec)."""
+    return ccsds121_host.encode(np.asarray(samples).ravel(), bits, J, rsi)
+
+
+def decode(bitstream: bytes, n_samples: int, bits: int = 16, J: int = 8,
+           rsi: int = 2) -> np.ndarray:
+    """``n_samples`` uint16 samples of ``bitstream``, by the host coder."""
+    return ccsds121_host.decode(bitstream, n_samples, bits, J, rsi)

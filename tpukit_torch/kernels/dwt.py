@@ -5,7 +5,8 @@ Port of the irreversible CDF 9/7, the reversible integer 5/3 and the
 reversible integer 9/7M paths of tpukit/kernels/dwt.py (``_fwd53_1d``,
 ``_inv53_1d``, ``_fwd97_1d``, ``_inv97_1d``, ``_fwd97m_1d``,
 ``_inv97m_1d``, ``_dwt2_once``, ``_idwt2_once``, ``dwt2``, ``idwt2``,
-``subband_slices``; :72-229, :256-269): split domain,
+the named transforms ``dwt53`` ... ``idwt97m``, ``subband_slices``;
+:72-269): split domain,
 whole-point symmetric extension (s[n] := s[n-1], d[-1] := d[0]), the last
 axis first and then the rows of each half, and the packed Mallat layout
 [LL | HL; LH | HH] per level, in place of the level's window.
@@ -213,6 +214,39 @@ def idwt2(c: torch.Tensor, kind: str = "97", levels: int = 3) -> torch.Tensor:
         h, w = H >> lv, W >> lv
         out[..., :h, :w] = _idwt2_once(out[..., :h, :w], kind)
     return out
+
+
+# tpukit's named transforms (tpukit/kernels/dwt.py:232-254): dwt2/idwt2 of
+# one kind at three levels by default, on the tensor's device
+
+
+def dwt53(x: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    return dwt2(x, "53", levels)
+
+
+def idwt53(c: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    return idwt2(c, "53", levels)
+
+
+def dwt97(x: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    """``dwt2(x, "97", levels)``: tpukit's jnp ``dwt97``, which never
+    reaches Pallas. Not kernel K2: its wrapper is
+    ``kernels.dwt97.dwt97(x, levels)``, which takes a (B, H, W) float32
+    stack and a level count and launches the CUDA kernel on a CUDA
+    tensor."""
+    return dwt2(x, "97", levels)
+
+
+def idwt97(c: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    return idwt2(c, "97", levels)
+
+
+def dwt97m(x: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    return dwt2(x, "97m", levels)
+
+
+def idwt97m(c: torch.Tensor, levels: int = 3) -> torch.Tensor:
+    return idwt2(c, "97m", levels)
 
 
 def subband_slices(H: int, W: int, levels: int) -> List[Tuple[str, int, tuple]]:

@@ -83,9 +83,11 @@ def _check(lib, err: int, step: Step):
 
 def dwt97(x: torch.Tensor, levels: int,
           tail_max: int = TAIL_MAX) -> torch.Tensor:
-    """(B, H, W) float32 -> (B, H, W) float32 packed multilevel 9/7 DWT.
-    ``tail_max`` (0 .. TAIL_MAX) moves the switch to the tail kernel; a
-    check can lower it to run every level through the tile kernel."""
+    """(B, H, W) float32 -> (B, H, W) float32 packed multilevel 9/7 DWT:
+    kernel K2's wrapper. ``tail_max`` (0 .. TAIL_MAX) moves the switch to
+    the tail kernel; a check can lower it to run every level through the
+    tile kernel. Not tpukit's ``dwt97``: that one is the plain
+    ``kernels.dwt.dwt97(x, levels=3)``, of any shape and on any device."""
     if x.device.type == "cpu":
         return dwt97_ref(x, levels)
     if x.device.type != "cuda":
