@@ -34,7 +34,11 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      launched K1 at least once per plan chunk, that its plan equals the
      plain CPU plan, that its stream equals the serial C++ coder's (pinned
      byte-exact to libaec by tests/test_ccsds121.py), and that every rep
-     is lossless;
+     is lossless; that the band interleave and its inverse ran on the
+     card: every rep's recon lane a CUDA tensor equal to the tile, the one
+     host stream fetched from the card equal to the host transpose of the
+     tile (computed once, untimed), and no host transpose
+     (``rawio.bsq_to_interleaved``/``interleaved_to_bsq``) in the sweep;
   4. the metric pass on a lossy recon of the same tile, on the card and on
      the CPU (exact integers and ERR8 maps; PSNR/SSIM within rel 1e-4,
      SAM/SID/LMSE within rel 1e-3: float32 sums in another order);
@@ -106,7 +110,9 @@ the port's main path, bench.py's canonical pair, through its own CLI:
      --interleave bip --tile 512 --stream-rows 512`` (plus
      ``--keep-bitstream``) on its 2000×10000×4 scene: the host's RSS delta
      under bench.py's 500 MB, and the rows, recon.tif (== the scene) and
-     every tile's stream equal to the same scene run whole-cube, K1
+     every tile's stream equal to the same scene run whole-cube, its
+     bytes equal to the codec's host-interleave path (the upload withheld:
+     the host transposes and the serial coder) and lossless, K1
      launched 0 times (a 4×512² tile is below one plan chunk); (b) a
      180×4096×1024 Case B scene (1.5 GB, the Case B tile recipe, its
      noise drawn on the card) that streams by itself in 1024-row strips, through the anchor's CCSDS-121
@@ -207,6 +213,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -220,7 +227,8 @@ from tpukit_torch.codecs import bpe122, bpe122_model, ccsds122_codec
 from tpukit_torch.codecs.bitplane_model import bpc_size_bytes_host
 from tpukit_torch.codecs import ccsds121 as model
 from tpukit_torch.codecs import wavelet_common as wc
-from tpukit_torch.codecs.ccsds121_codec import flat_stream
+from tpukit_torch.codecs import ccsds121_codec
+from tpukit_torch.codecs.ccsds121_codec import CCSDS121Codec, flat_stream
 from tpukit_torch import native
 from tpukit_torch.codecs import ccsds123_codec, j2k_codec
 from tpukit_torch.codecs.base import RateSpec, device_work
@@ -229,6 +237,7 @@ from tpukit_torch.codecs.ccsds123_codec import CCSDS123Codec
 from tpukit_torch.codecs.j2k_codec import J2KCodec
 from tpukit_torch.device import resolve_device
 from tpukit_torch.io import manifest, tiff
+from tpukit_torch.io import raw as rawio
 from tpukit_torch.io.jp2 import JP2Decoder
 from tpukit_torch.kernels import build
 from tpukit_torch.kernels import dwt as dwtk
@@ -537,15 +546,33 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     row and the plan (phase 11b holds the mesh run to them)."""
     idx = write_caseb_index(work, cube)
 
-    plans = []
-    encode_plan = model.encode_plan
+    plans, recons, fetched = [], [], []
+    transposes = {"bsq_to_interleaved": 0, "interleaved_to_bsq": 0}
 
-    def recording_plan(*a, **kw):
-        plans.append(encode_plan(*a, **kw))
-        return plans[-1]
+    def recording(out, fn, keep=lambda r: r):
+        def call(*a, **kw):
+            r = fn(*a, **kw)
+            out.append(keep(r))
+            return r
+        return call
 
-    model.encode_plan = recording_plan
-    try:
+    def counted(name):
+        fn = getattr(rawio, name)
+
+        def call(*a, **kw):
+            transposes[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    with contextlib.ExitStack() as patches:
+        for obj, name, fn in [
+                (model, "encode_plan", recording(plans, model.encode_plan)),
+                (CCSDS121Codec, "run", recording(recons, CCSDS121Codec.run,
+                                                 lambda r: r.recon)),
+                (ccsds121_codec, "host_flat",
+                 recording(fetched, ccsds121_codec.host_flat)),
+                *((rawio, n, counted(n)) for n in transposes)]:
+            patches.enter_context(mock.patch.object(obj, name, fn))
         fs_table.launches = 0
         t0 = time.perf_counter()
         res = run_codec([
@@ -556,8 +583,6 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
         launches = fs_table.launches
-    finally:
-        model.encode_plan = encode_plan
 
     nchunks = -(-BANDS * SIZE * SIZE // PLAN_CHUNK)
     if launches != nchunks:
@@ -578,6 +603,26 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
     # the stream == the monolithic serial coder's
     flat = np.moveaxis(cube.view(np.uint16), 0, -1).ravel()
     serial = ccsds121_host.encode(flat, 16, 8, 2)
+
+    # the interleave and its inverse on the card: one fetched host stream
+    # (reps 2-3 take it from the plan cache) == the host transpose, every
+    # rep's recon lane a CUDA tensor == the tile, no host transpose
+    if any(transposes.values()):
+        raise AssertionError(f"host transposes in the sweep: {transposes}")
+    if len(fetched) != 1 or fetched[0].dtype != np.uint16 \
+            or not np.array_equal(fetched[0], flat):
+        raise AssertionError(f"the {len(fetched)} host stream(s) fetched "
+                             f"from the card != the host transpose")
+    tile_dev = torch.from_numpy(cube).cuda()
+    if len(recons) != 3 or not all(
+            isinstance(r, torch.Tensor) and r.is_cuda
+            and torch.equal(r, tile_dev) for r in recons):
+        raise AssertionError("a recon lane is not a CUDA tensor equal to "
+                             "the tile: " + ", ".join(
+                                 f"{type(r).__name__} on "
+                                 f"{getattr(r, 'device', 'host')}"
+                                 for r in recons))
+    del tile_dev, recons
     rows = list(csv.DictReader(open(work / "runs" / "metrics.csv",
                                     newline=""), delimiter=";"))
     if len(rows) != 3:
@@ -603,7 +648,9 @@ def run_slice(work: Path, cube: np.ndarray, card: str):
             f"{r['t_dec_s']:.3f} s, t_wrap {r['t_wrap_s']:.3f} s on {card}")
     log(f"[slice] sweep wall {sweep_s:.2f} s, phases {res['phases']}, "
         f"{launches} K1 launches, {len(serial)} B stream, hbm peak "
-        f"{rows[0].get('hbm_peak_mb')} MiB on {card}")
+        f"{rows[0].get('hbm_peak_mb')} MiB; interleave and inverse on the "
+        f"card (3 CUDA recon lanes == the tile, the fetched stream == the "
+        f"host transpose, no host transpose) on {card}")
     return launches, len(serial), {"stream": serial, "row": rows[0],
                                    "rows": rows, "plan": plans[0]}
 
@@ -1856,9 +1903,10 @@ def run_stream512(work: Path, card):
     """Phase 9a: bench.py's ccsds121_stream512 scene row on the card, its
     host RSS delta under bench.py's 500 MB, held to the same scene run
     whole-cube: rows, recon == source; then the row again with
-    --keep-bitstream, every tile's stream equal to the whole-cube run's.
-    Returns K1's launches (0: a 4x512² tile is below one plan chunk, so it
-    stays on the serial coder)."""
+    --keep-bitstream, every tile's stream equal to the whole-cube run's;
+    its bytes those of the codec's host-interleave path (no upload), run
+    once untimed. Returns K1's launches (0: a 4x512² tile is below one
+    plan chunk, so it stays on the serial coder)."""
     scene = make_scene(np.random.default_rng(2026))
     src = work / "caseA_scene_12in16.tif"
     tiff.write_geotiff(src, scene, blockxsize=512, blockysize=512)
@@ -1889,6 +1937,13 @@ def run_stream512(work: Path, card):
     same_rows(got, read_rows(work / "whole" / "metrics.csv"), "9a")
     if (got[0]["lossless"], got[0]["max_abs_err"]) != ("1", "0"):
         raise AssertionError(f"9a: not lossless: {got[0]}")
+    host = CCSDS121Codec(tile=512, interleave="bip", preproc="none",
+                         nbit=16).run(scene, "uint16", RateSpec.none())
+    if (int(got[0]["bitstream_bytes"]) != host.bitstream_bytes
+            or not np.array_equal(host.recon, scene)):
+        raise AssertionError(f"9a: {got[0]['bitstream_bytes']} B, the host "
+                             f"interleave's {host.bitstream_bytes} B")
+    del host
     run = Path("sceneA") / "norate" / "rep_01"
     if not equal_to_source(work / "s512" / run / "recon.tif", scene):
         raise AssertionError("9a: streamed recon.tif != the scene")
@@ -1901,7 +1956,8 @@ def run_stream512(work: Path, card):
     log(f"[stream] 9a ccsds121_stream512: wall {wall:.2f} s, "
         f"{n / wall / 1e6:.1f} Msamples/s, RSS delta {rss:.1f} MB, "
         f"{-(-scene.shape[1] // 512)} strips, {len(streamed)} tile streams "
-        f"({sum(map(len, streamed.values()))} B) == whole-cube; whole-cube "
+        f"({sum(map(len, streamed.values()))} B) == whole-cube == the host "
+        f"interleave's bytes; whole-cube "
         f"run (streams kept) {wwall:.2f} s, RSS delta {wrss:.1f} MB; t_comp_s "
         f"{got[0]['t_comp_s']}, t_dec_s {got[0]['t_dec_s']} on {card}")
     return k1
