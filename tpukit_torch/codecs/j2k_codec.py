@@ -144,6 +144,37 @@ def _decode_bands_into(recon: np.ndarray, streams, info, dtype) -> None:
             one(b)
 
 
+# The two band-parallel steps of the ``ebcot`` backend below run one job per
+# band through ``pmap``: a band pool's map (:func:`_band_pool`) or the
+# builtin map on one core. A job touches only its own band's plan, so the
+# per-plan caches (``lossless()``, the truncated-decode model's per-band
+# arrays) are never shared; the native calls release the GIL;
+# ``native.load()`` is locked. ``j2c_enc._load_t1enc`` may run in two jobs
+# at its first use, which is harmless: both set the same ``restype`` and
+# ``argtypes`` on the same function. The caller enters ``mem_phase`` (a
+# module global) around the map, never a job.
+
+def _band_plans(cube: np.ndarray, depth: int, signed: bool, wavelet: str,
+                base: float, pmap) -> list:
+    """One :class:`J2CPlan` per band (the native DWT and the tier-1 of
+    every code-block), in band order."""
+    return list(pmap(lambda b: J2CPlan(cube[b], depth, signed,
+                                       levels=LEVELS, wavelet=wavelet,
+                                       base_step=base),
+                     range(cube.shape[0])))
+
+
+def _model_bands_into(recon: np.ndarray, plans, sels, info, pmap) -> None:
+    """Each band's truncated-decode model recon of the selection ``sels``
+    (bit-identical to JP2Decoder of the truncated stream) into recon,
+    clipped to ``info``'s range and cast to recon's dtype."""
+    def one(b):
+        recon[b] = np.clip(plans[b].truncated_recon(sels[b]), info.min,
+                           info.max).astype(recon.dtype)
+
+    list(pmap(one, range(len(plans))))
+
+
 def _cube_token(cube: np.ndarray) -> int:
     """Content token folded into every plan-cache key: a CRC of the full
     cube bytes, so a same-shape cube is never served another's streams."""
@@ -1286,43 +1317,48 @@ class J2KCodec(Codec):
                        _cube_token(cube), wavelet, float(base))
             cached_plans = (cache.get(plankey) if cache is not None
                             else None)
-            with mem_phase("comp"):
+            # the plans and the model recon band-parallel (the contract
+            # above _band_plans); the truncation stays one serial call
+            pool = _band_pool(B)
+            pmap = pool.map if pool is not None else map
+            try:
+                with mem_phase("comp"):
+                    t0 = time.perf_counter()
+                    if cached_plans is None:
+                        plans = _band_plans(cube, depth, signed, wavelet,
+                                            base, pmap)
+                        t_plan = time.perf_counter() - t0
+                        if cache is not None:
+                            cache[plankey] = (plans, t_plan)
+                    else:
+                        plans, t_plan = cached_plans
+                    t0 = time.perf_counter()
+                    if lossless or rate.key not in ("bpp", "cr"):
+                        sels = [p._select_all() for p in plans]
+                        streams = [p.lossless() for p in plans]
+                    else:
+                        streams, sels = at_size_multi(
+                            plans, self._ebcot_target(rate, B, H, W),
+                            return_sel=True)
+                        q_used = None
+                t_comp = t_plan + (time.perf_counter() - t0)
+                rdkey = ("j2c_realdec_single",) + pkey[1:]
+                t_real = cache.get(rdkey) if cache is not None else None
+                t_model = None
                 t0 = time.perf_counter()
-                if cached_plans is None:
-                    plans = [J2CPlan(cube[b], depth, signed, levels=LEVELS,
-                                     wavelet=wavelet, base_step=base)
-                             for b in range(B)]
-                    t_plan = time.perf_counter() - t0
-                    if cache is not None:
-                        cache[plankey] = (plans, t_plan)
-                else:
-                    plans, t_plan = cached_plans
-                t0 = time.perf_counter()
-                if lossless or rate.key not in ("bpp", "cr"):
-                    sels = [p._select_all() for p in plans]
-                    streams = [p.lossless() for p in plans]
-                else:
-                    streams, sels = at_size_multi(
-                        plans, self._ebcot_target(rate, B, H, W),
-                        return_sel=True)
-                    q_used = None
-            t_comp = t_plan + (time.perf_counter() - t0)
-            rdkey = ("j2c_realdec_single",) + pkey[1:]
-            t_real = cache.get(rdkey) if cache is not None else None
-            t_model = None
-            t0 = time.perf_counter()
-            with mem_phase("dec"):
-                recon = np.empty_like(cube)
-                if t_real is None:
-                    _decode_bands_into(recon, streams, info, cube.dtype)
-                    t_real = time.perf_counter() - t0
-                    if cache is not None:
-                        cache[rdkey] = t_real
-                else:
-                    for b, (p, s) in enumerate(zip(plans, sels)):
-                        recon[b] = np.clip(p.truncated_recon(s), info.min,
-                                           info.max).astype(cube.dtype)
-                    t_model = time.perf_counter() - t0
+                with mem_phase("dec"):
+                    recon = np.empty_like(cube)
+                    if t_real is None:
+                        _decode_bands_into(recon, streams, info, cube.dtype)
+                        t_real = time.perf_counter() - t0
+                        if cache is not None:
+                            cache[rdkey] = t_real
+                    else:
+                        _model_bands_into(recon, plans, sels, info, pmap)
+                        t_model = time.perf_counter() - t0
+            finally:
+                if pool is not None:
+                    pool.shutdown()
             t_dec = t_real
             hit = (streams, recon, t_comp, t_dec, q_used, t_model)
             if cache is not None and dedupe:
@@ -1379,110 +1415,119 @@ class J2KCodec(Codec):
                   if not s.lossless and s.key in ("bpp", "cr", "quality")]
         cache = opts.get("device_plan_cache")
         dedupe = bool(opts.get("dedupe_reps"))
-        if ladder:
-            qual_ix = [i for i in ladder if specs[i].key == "quality"]
-            targets: Dict[int, int] = {}
-            base = 1.0
-            t_extra = 0.0
-            pending = None
-            tkey = ("j2c_targets", B, H, W, cube.dtype.name,
-                    _cube_token(cube),
-                    tuple((specs[i].key, specs[i].value) for i in qual_ix))
-            if qual_ix and cache is not None and tkey in cache:
-                targets.update(cache[tkey][0])
-                base, t_extra = cache[tkey][1], cache[tkey][2]
-            elif qual_ix:
-                qual_specs = {i: specs[i] for i in qual_ix}
-                # enqueued before the host analysis below, read after it
-                dc = opts.get("device_cube")
-                if dc is None:
-                    dc = torch.from_numpy(np.ascontiguousarray(cube))
-                pending = self._price_targets(cube, qual_specs,
-                                              dc.to(work_device(opts)))
-                base = min(1.0, float(self._quality_bases(
-                    cube, qual_specs.values()).min()))
-            for i in ladder:
-                if specs[i].key != "quality":
-                    targets[i] = self._ebcot_target(specs[i], B, H, W)
+        # one band pool for the call: the plans and every point's model
+        # recon run on it (the contract above _band_plans). The points
+        # stay one after another, so t_comp_s, t_dec_s and t_dec_model_s
+        # time that point's own work, as in tpukit; at_size_multi stays
+        # one serial call a point (a pool inside its bisection pays more
+        # per step than the step costs), and the real decode is already
+        # band-parallel (_decode_bands_into)
+        pool = _band_pool(B) if ladder else None
+        pmap = pool.map if pool is not None else map
+        try:
+            if ladder:
+                qual_ix = [i for i in ladder if specs[i].key == "quality"]
+                targets: Dict[int, int] = {}
+                base = 1.0
+                t_extra = 0.0
+                pending = None
+                tkey = ("j2c_targets", B, H, W, cube.dtype.name,
+                        _cube_token(cube),
+                        tuple((specs[i].key, specs[i].value) for i in qual_ix))
+                if qual_ix and cache is not None and tkey in cache:
+                    targets.update(cache[tkey][0])
+                    base, t_extra = cache[tkey][1], cache[tkey][2]
+                elif qual_ix:
+                    qual_specs = {i: specs[i] for i in qual_ix}
+                    # enqueued before the host analysis below, read after it
+                    dc = opts.get("device_cube")
+                    if dc is None:
+                        dc = torch.from_numpy(np.ascontiguousarray(cube))
+                    pending = self._price_targets(cube, qual_specs,
+                                                  dc.to(work_device(opts)))
+                    base = min(1.0, float(self._quality_bases(
+                        cube, qual_specs.values()).min()))
+                for i in ladder:
+                    if specs[i].key != "quality":
+                        targets[i] = self._ebcot_target(specs[i], B, H, W)
 
-            ckey = ("j2c_plans", B, H, W, cube.dtype.name,
-                    _cube_token(cube), base)
-            plans = t_plan = None
-            if cache is not None and ckey in cache:
-                plans, t_plan = cache[ckey]
-            if plans is None:
-                t0 = time.perf_counter()
-                with mem_phase("comp"):
-                    plans = [J2CPlan(cube[b], depth, signed,
-                                     levels=LEVELS, wavelet="97",
-                                     base_step=base) for b in range(B)]
-                t_plan = time.perf_counter() - t0
-                if cache is not None:
-                    cache[ckey] = (plans, t_plan)
-            if pending is not None:
-                # the residual wait for the priced sizes bills here
-                t0 = time.perf_counter()
-                targets.update(pending())
-                t_extra += time.perf_counter() - t0
-                if cache is not None:
-                    cache[tkey] = ({i: targets[i] for i in qual_ix},
-                                   base, t_extra)
-            # point-level reuse across reps only under --dedupe-reps;
-            # honest reps get a call-local dict, so identical targets
-            # WITHIN one ladder still share
-            pcache = (cache.setdefault(("j2c_points",) + ckey[1:], {})
-                      if (cache is not None and dedupe) else {})
-            # t_dec_s comes from ONE real decode per (tile, rate); later
-            # reps re-report it and reconstruct through the
-            # truncated-decode model
-            rdcache = (cache.setdefault(("j2c_realdec",) + ckey[1:], {})
-                       if cache is not None else {})
-            for i in ladder:
-                hit = pcache.get(targets[i])
-                if hit is None:
+                ckey = ("j2c_plans", B, H, W, cube.dtype.name,
+                        _cube_token(cube), base)
+                plans = t_plan = None
+                if cache is not None and ckey in cache:
+                    plans, t_plan = cache[ckey]
+                if plans is None:
                     t0 = time.perf_counter()
                     with mem_phase("comp"):
-                        streams, sels = at_size_multi(plans, targets[i],
-                                                      return_sel=True)
-                    t_trunc = time.perf_counter() - t0
-                    t_real = rdcache.get(targets[i])
-                    t_model = None
+                        plans = _band_plans(cube, depth, signed, "97", base,
+                                            pmap)
+                    t_plan = time.perf_counter() - t0
+                    if cache is not None:
+                        cache[ckey] = (plans, t_plan)
+                if pending is not None:
+                    # the residual wait for the priced sizes bills here
                     t0 = time.perf_counter()
-                    with mem_phase("dec"):
-                        recon = np.empty_like(cube)
-                        if t_real is None:
-                            _decode_bands_into(recon, streams, info,
-                                               cube.dtype)
-                            t_real = time.perf_counter() - t0
-                            rdcache[targets[i]] = t_real
-                        else:
-                            for b, (p, s) in enumerate(zip(plans, sels)):
-                                recon[b] = np.clip(p.truncated_recon(s),
-                                                   info.min,
-                                                   info.max).astype(
-                                                       cube.dtype)
-                            t_model = time.perf_counter() - t0
-                    hit = (streams, recon, t_trunc, t_real, t_model)
-                    # bounded: each entry pins a full-cube recon
-                    held = sum(r.nbytes for _, r, _, _, _ in
-                               pcache.values())
-                    if held + recon.nbytes <= _PCACHE_BYTES:
-                        pcache[targets[i]] = hit
-                streams, recon, t_trunc, t_real, t_model = hit
-                q_used = (self.quality_for(specs[i])
-                          if specs[i].key == "quality" else None)
-                extras = {"quality_used": q_used, "entropy": "ebcot"}
-                if t_model is not None:
-                    extras["t_dec_model_s"] = t_model
-                out[i] = CodecResult(
-                    codec="j2k_gdal", encoder=self.encoder_desc,
-                    bitstream_bytes=sum(len(s) for s in streams),
-                    recon=recon, t_comp_s=t_plan + t_extra + t_trunc,
-                    t_dec_s=t_real,
-                    bitstreams=({f"b{b+1:02d}.j2c": s for b, s in
-                                 enumerate(streams)} if keep_bitstream
-                                else None),
-                    extras=extras)
+                    targets.update(pending())
+                    t_extra += time.perf_counter() - t0
+                    if cache is not None:
+                        cache[tkey] = ({i: targets[i] for i in qual_ix},
+                                       base, t_extra)
+                # point-level reuse across reps only under --dedupe-reps;
+                # honest reps get a call-local dict, so identical targets
+                # WITHIN one ladder still share
+                pcache = (cache.setdefault(("j2c_points",) + ckey[1:], {})
+                          if (cache is not None and dedupe) else {})
+                # t_dec_s comes from ONE real decode per (tile, rate); later
+                # reps re-report it and reconstruct through the
+                # truncated-decode model
+                rdcache = (cache.setdefault(("j2c_realdec",) + ckey[1:], {})
+                           if cache is not None else {})
+                for i in ladder:
+                    hit = pcache.get(targets[i])
+                    if hit is None:
+                        t0 = time.perf_counter()
+                        with mem_phase("comp"):
+                            streams, sels = at_size_multi(plans, targets[i],
+                                                          return_sel=True)
+                        t_trunc = time.perf_counter() - t0
+                        t_real = rdcache.get(targets[i])
+                        t_model = None
+                        t0 = time.perf_counter()
+                        with mem_phase("dec"):
+                            recon = np.empty_like(cube)
+                            if t_real is None:
+                                _decode_bands_into(recon, streams, info,
+                                                   cube.dtype)
+                                t_real = time.perf_counter() - t0
+                                rdcache[targets[i]] = t_real
+                            else:
+                                _model_bands_into(recon, plans, sels, info,
+                                                  pmap)
+                                t_model = time.perf_counter() - t0
+                        hit = (streams, recon, t_trunc, t_real, t_model)
+                        # bounded: each entry pins a full-cube recon
+                        held = sum(r.nbytes for _, r, _, _, _ in
+                                   pcache.values())
+                        if held + recon.nbytes <= _PCACHE_BYTES:
+                            pcache[targets[i]] = hit
+                    streams, recon, t_trunc, t_real, t_model = hit
+                    q_used = (self.quality_for(specs[i])
+                              if specs[i].key == "quality" else None)
+                    extras = {"quality_used": q_used, "entropy": "ebcot"}
+                    if t_model is not None:
+                        extras["t_dec_model_s"] = t_model
+                    out[i] = CodecResult(
+                        codec="j2k_gdal", encoder=self.encoder_desc,
+                        bitstream_bytes=sum(len(s) for s in streams),
+                        recon=recon, t_comp_s=t_plan + t_extra + t_trunc,
+                        t_dec_s=t_real,
+                        bitstreams=({f"b{b+1:02d}.j2c": s for b, s in
+                                     enumerate(streams)} if keep_bitstream
+                                    else None),
+                        extras=extras)
+        finally:
+            if pool is not None:
+                pool.shutdown()
         for i, s in enumerate(specs):
             if out[i] is None:
                 out[i] = self._run_ebcot(cube, dtype_name, s,
